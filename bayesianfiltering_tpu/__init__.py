@@ -1,4 +1,4 @@
-"""bayesianfiltering_tpu — a TPU-native Bayesian filtering framework.
+"""bayesianfiltering_tpu — a Bayesian filtering framework on JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 kostastsa/BayesianFiltering ("gaussfiltax"): Gaussian filters (EKF / UKF /
@@ -11,7 +11,7 @@ Design stance (see SURVEY.md):
   * struct-of-arrays Gaussian mixtures, static shapes, `lax.scan` over time,
     `vmap` over components/particles/sigma points;
   * Cholesky-based PSD solves and eigh-based matrix square roots (no Schur);
-  * systematic resampling via parallel cumsum (TPU-friendly gathers);
+  * systematic resampling via parallel cumsum and one scatter;
   * explicit PRNG keys everywhere, with compat flags reproducing reference
     quirks where they matter for parity;
   * multi-device scaling via `jax.sharding.Mesh` + `shard_map` (batch- and

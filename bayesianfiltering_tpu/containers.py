@@ -8,8 +8,7 @@ Design departure from the reference: the reference stores mixtures as Python
 measures exactly this bloat). Here a :class:`GaussianSum` is
 struct-of-arrays from day one: ``means (M, dx)``, ``covariances (M, dx, dx)``,
 ``weights (M,)``. All mixture transforms are batched array ops with static
-shapes, so trace size is O(1) in the number of components and the arrays tile
-directly onto TPU vector lanes.
+shapes, so trace size is O(1) in the number of components.
 
 Splitting a component into N children samples means from ``N(m, P − Δ)`` and
 assigns covariance Δ and weight w/N to each child (the AGSF "augmentation";

@@ -3,9 +3,9 @@
 The reference leans on ``tensorflow_probability.substrates.jax`` for every
 MVN sample / log-prob (e.g. ref: gaussfiltax/inference.py:7,24,367 and
 gaussfiltax/models.py:4). TFP is a heavy dependency and its generic
-distribution machinery adds dispatch overhead inside `scan` bodies; on TPU
-all we need is a Cholesky factorization feeding triangular solves (MXU/VPU
-friendly, fuses with neighbours under XLA). We therefore implement the MVN
+distribution machinery adds dispatch overhead inside `scan` bodies; all we
+need is a Cholesky factorization feeding triangular solves (fuses with
+neighbours under XLA). We therefore implement the MVN
 ops natively and expose a minimal distribution shim with the TFP call
 surface used by the model layer (`.sample(seed=...)`, `.log_prob(x)`).
 """
@@ -41,13 +41,13 @@ def mvn_logpdf(x: jax.Array, mean: jax.Array, cov: jax.Array) -> jax.Array:
     if cov.ndim == 2 and diff.ndim > 1:
         # Shared covariance, batched residuals (the particle-filter hot
         # path): invert the small triangular factor ONCE and whiten via a
-        # single batched matmul (MXU) instead of a large-batch tiny
-        # TriangularSolve, which TPU lowers poorly.
+        # single batched matmul instead of a large-batch tiny
+        # TriangularSolve.
         linv = jax.scipy.linalg.solve_triangular(
             chol, jnp.eye(dim, dtype=chol.dtype), lower=True
         )
-        # precision pin: TPU matmuls default to bf16 inputs; whitening feeds
-        # log-weights, so keep full f32 (cost is negligible at these shapes).
+        # precision pin: whitening feeds log-weights, so keep full f32 (no
+        # TF32; the cost is negligible at these shapes).
         z = jnp.einsum("ij,...j->...i", linv, diff,
                        precision=jax.lax.Precision.HIGHEST)
     else:

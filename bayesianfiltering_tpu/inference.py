@@ -17,7 +17,7 @@ extended_kalman_filter (new)            (the M=1 fast path; BASELINE config 2)
 unscented_kalman_filter (new)           (the M=1 fast path)
 =====================================   =====================================
 
-Design notes (TPU-first, SURVEY.md §7):
+Design notes (SURVEY.md §7):
 
 * Every filter is a single `lax.scan` over time of batched (vmapped) step
   primitives from :mod:`bayesianfiltering_tpu.ops`; mixtures are
@@ -58,14 +58,11 @@ from bayesianfiltering_tpu.distributions import mvn_sample
 from bayesianfiltering_tpu.models.params import ParamsBPF, ParamsNLSSM
 from bayesianfiltering_tpu.ops import bank_update as _bank
 from bayesianfiltering_tpu.ops import ekf as _ekf
-from bayesianfiltering_tpu.ops import fused_ekf as _fused
-from bayesianfiltering_tpu.ops import fused_ut as _fused_ut
 from bayesianfiltering_tpu.ops import ukf as _ukf
 from bayesianfiltering_tpu.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu.types import PRNGKey
 from bayesianfiltering_tpu.utils.resampling import (
     effective_sample_size,
-    get_counts_fn,
     get_resampler,
 )
 
@@ -109,25 +106,10 @@ def _predict_input(inputs, t, num_timesteps: int):
     return inputs[jnp.minimum(t + 1, num_timesteps - 1)]
 
 
-def _filter_vmap_gate(params: ParamsNLSSM, emissions, inputs):
-    """False (disable fused Pallas kernels) when ANY filter input is batched
-    at this trace point: a vmapped pallas_call runs sequentially per batch
-    element while XLA batches over the whole bank (BENCHLOG.md). Checked at
-    the filter boundary because vmap batches the scan primitive AFTER its
-    body is traced — in-step tracer checks cannot see it."""
-    batched = _fused._is_vmapped(
-        emissions, inputs,
-        params.initial_mean, params.initial_covariance,
-        params.dynamics_noise_bias, params.dynamics_noise_covariance,
-        params.emission_noise_bias, params.emission_noise_covariance,
-    )
-    return False if batched else None
-
-
 def _jacobians(params: ParamsNLSSM):
     """Model functions + Jacobians: analytic when the params provide them
-    (ParamsNLSSM.*_jacobian_* — a TPU-first extension; the vmapped jacfwd
-    evaluation dominates the mixture filters' scan step), jacfwd otherwise.
+    (ParamsNLSSM.*_jacobian_* — an extension; the vmapped jacfwd evaluation
+    can dominate the mixture filters' scan step), jacfwd otherwise.
     """
     f, h = params.dynamics_function, params.emission_function
     return (
@@ -213,20 +195,13 @@ def extended_kalman_filter(
 
     ``update_chunk`` enables the sequential chunked measurement update for
     large emission dimensions (exact for block-diagonal effective noise;
-    see :func:`bayesianfiltering_tpu.ops.fused_ekf.fused_ekf_condition_on_chunked`).
+    see :func:`bayesianfiltering_tpu.ops.ekf.ekf_condition_on_chunked`).
     Recommended ``update_chunk=128`` for dy > 128 with diagonal R (the
     BASELINE dx=512 Lorenz-96 config).
     """
     num_timesteps = len(emissions)
     f, h, F_x, H_x, F_q, H_r = _jacobians(params)
     inputs = _process_input(inputs, num_timesteps)
-    # The fused single-stream Pallas kernels (ops/fused_ekf.py) only pay off
-    # UNBATCHED: under vmap a pallas_call becomes a sequential grid axis
-    # (95k vs 695k timestep-equiv/s on the vmap-256 bench) while the XLA
-    # blocked factorizations vectorize over batch lanes. vmap batches the
-    # scan primitive AFTER its body is traced, so the batching check must
-    # happen HERE at the filter boundary, not inside the step.
-    use_fused = _filter_vmap_gate(params, emissions, inputs)
     residual_fn = getattr(params, "emission_residual", None)
 
     def step(carry, t):
@@ -239,24 +214,21 @@ def extended_kalman_filter(
                 m_pred, P_pred, h, H_x, H_r, R, r0, u, y
             )
         elif update_chunk is not None:
-            upd = _fused.fused_ekf_condition_on_chunked(
+            upd = _ekf.ekf_condition_on_chunked(
                 m_pred, P_pred, h, H_x, H_r, R, r0, u, y, update_chunk,
-                num_iter, jitter, use_pallas=use_fused,
-                residual_fn=residual_fn,
+                num_iter, jitter, residual_fn,
             )
         else:
-            upd = _fused.fused_ekf_condition_on_iterated(
+            upd = _ekf.ekf_condition_on_iterated(
                 m_pred, P_pred, h, H_x, H_r, R, r0, u, y, num_iter, jitter,
-                use_pallas=use_fused, residual_fn=residual_fn,
+                residual_fn,
             )
         # compat mode keeps the reference's misaligned u_t predict
         # (see _predict_input) so golden parity pins its exact semantics.
         u_next = u if compat_scalar else _predict_input(inputs, t,
                                                         num_timesteps)
-        m_next, P_next, _ = _fused.fused_ekf_predict(
-            upd.mean, upd.cov, f, F_x, F_q, Q, q0, u_next,
-            use_pallas=use_fused,
-        )
+        m_next, P_next, _ = _ekf.ekf_predict(
+            upd.mean, upd.cov, f, F_x, F_q, Q, q0, u_next)
         carry = (m_next, P_next, ll + upd.log_likelihood)
         return carry, (upd.mean, upd.cov, m_next, P_next)
 
@@ -417,35 +389,21 @@ def unscented_kalman_filter(
     f, h = params.dynamics_function, params.emission_function
     inputs = _process_input(inputs, num_timesteps)
     residual_fn = getattr(params, "emission_residual", None)
-    # Single-stream runs go through the fused UT Pallas kernels
-    # (ops/fused_ut.py) — the XLA in-scan factorizations are the UKF cost at
-    # M=1 (BENCHLOG.md round 3). Batched (vmapped) runs keep the batched
-    # blocked-recursion XLA path; the gate must sit at the filter boundary
-    # (ops/fused_ekf.py rationale).
-    use_fused = _filter_vmap_gate(params, emissions, inputs)
     if additive:
         if num_iter > 1:
             raise ValueError(
                 "num_iter > 1 (IPLF) is only implemented for the "
                 "non-additive quadrature; pass additive=False"
             )
-        predict = functools.partial(_fused_ut.fused_ukf_predict_additive,
-                                    use_pallas=use_fused)
-        condition = functools.partial(
-            _fused_ut.fused_ukf_condition_on_additive,
-            residual_fn=residual_fn, use_pallas=use_fused)
+        predict = _ukf.ukf_predict_additive
+        condition = functools.partial(_ukf.ukf_condition_on_additive,
+                                      residual_fn=residual_fn)
     else:
-        predict = functools.partial(_fused_ut.fused_ukf_predict_nonadditive,
-                                    use_pallas=use_fused)
+        predict = _ukf.ukf_predict_nonadditive
 
         def condition(m, P, h, R, u, y, uparams, r0):
-            if num_iter > 1:
-                return _ukf.ukf_condition_on_nonadditive_iterated(
-                    m, P, h, R, u, y, uparams, r0, num_iter, residual_fn
-                )
-            return _fused_ut.fused_ukf_condition_on_nonadditive(
-                m, P, h, R, u, y, uparams, r0, residual_fn,
-                use_pallas=use_fused)
+            return _ukf.ukf_condition_on_nonadditive_iterated(
+                m, P, h, R, u, y, uparams, r0, num_iter, residual_fn)
 
     def step(carry, t):
         m_pred, P_pred, ll = carry
@@ -521,18 +479,13 @@ def gaussian_sum_filter(
     if key is None:
         key = jr.PRNGKey(0)
 
-    # Fused bank primitives: on TPU (dims ≤ 8) the whole linear-algebra
-    # update/predict runs as ONE Pallas kernel over the component bank
-    # (ops/bank_update.py); elsewhere they reduce to the vmapped EKF ops.
-    # Under vmap (e.g. parallel.batched_filter) the kernels must be gated
-    # OFF at THIS boundary — a vmapped pallas_call runs sequentially per
-    # batch element while XLA batches over B·M components (BENCHLOG.md).
-    use_fused = _filter_vmap_gate(params, emissions, inputs)
+    # Bank primitives (ops/bank_update.py): one kernel per half-step over
+    # the component bank where bank_impl claims the shapes, the vmapped
+    # EKF algebra otherwise.
     v_update = functools.partial(
-        _bank.bank_ekf_condition_on_iterated, use_pallas=use_fused,
+        _bank.bank_ekf_condition_on_iterated,
         residual_fn=getattr(params, "emission_residual", None))
-    v_predict = functools.partial(_bank.bank_ekf_predict,
-                                  use_pallas=use_fused)
+    v_predict = _bank.bank_ekf_predict
 
     def step(carry, t):
         weights, pred_means, pred_covs, ll = carry
@@ -582,11 +535,6 @@ def unscented_gaussian_sum_filter(
     if key is None:
         key = jr.PRNGKey(0)
 
-    # NOTE round 2: a fused bank-major Pallas UT update/moments kernel was
-    # built, validated, and REMOVED — end-to-end it LOST ~30% (BOT UGSF
-    # 99.9 -> 130.7 ms): the per-step bank-major layout conversion of the
-    # (M, 2n, d) sigma-point tensors costs more than fusing the ~25 moment/
-    # gain ops saves (BENCHLOG.md). The vmapped form below is the fast path.
     v_update = vmap(
         functools.partial(
             _ukf.ukf_condition_on_nonadditive_iterated,
@@ -716,14 +664,10 @@ def _agsf_engine(
 
     use_ekf = moments == "ekf"
     if use_ekf:
-        # Fused Pallas bank primitives on TPU (ops/bank_update.py), vmapped
-        # EKF ops elsewhere — bit-compatible semantics either way. Gated
-        # OFF under vmap at this filter boundary (see gaussian_sum_filter).
-        use_fused = _filter_vmap_gate(params, emissions, inputs)
-        v_predict = functools.partial(_bank.bank_ekf_predict,
-                                      use_pallas=use_fused)
+        # Bank primitives (ops/bank_update.py), as in gaussian_sum_filter.
+        v_predict = _bank.bank_ekf_predict
         v_update = functools.partial(
-            _bank.bank_ekf_condition_on_iterated, use_pallas=use_fused,
+            _bank.bank_ekf_condition_on_iterated,
             residual_fn=getattr(params, "emission_residual", None))
     else:
         v_predict = vmap(
@@ -857,8 +801,8 @@ def augmented_gaussian_sum_filter(
     ``reduction`` ∈ {"multinomial", "systematic", "stratified", "topk",
     "optimal"}. "multinomial" is the reference's nominal behavior, but iid
     resampling at small M occasionally discards the only on-track component
-    (catastrophic RMSE outliers on the BOT benchmark, BENCHLOG.md round 2);
-    prefer "topk" or "systematic" at M ≲ 8.
+    (catastrophic RMSE outliers on the BOT benchmark); prefer "topk" or
+    "systematic" at M ≲ 8.
     """
     if rng_key is None:
         rng_key = jr.PRNGKey(0)
@@ -949,23 +893,12 @@ def bootstrap_particle_filter(
     """Bootstrap PF with ESS-adaptive resampling
     (ref: gaussfiltax/inference.py:1302-1381).
 
-    TPU-first changes vs the reference: particle propagation samples the
-    dynamics noise as ONE batched Cholesky draw instead of a vmap of
-    per-particle MVN constructions; weights are tracked in log space; the
-    default resampler is systematic (single uniform + parallel cumsum;
-    ``resampler="multinomial"`` recovers the reference behavior).
-
-    On TPU at ``num_particles ≥ 2^16`` the counts-based resamplers
-    (systematic/stratified) run through the windowed parents kernel with
-    DEFERRAL (ops/resample_gather.py): in the measure-zero event that a
-    step's weight profile is so locally skewed that a 2048-output tile
-    draws parents spanning more than ~4096 source indices, that step's
-    resampling is skipped (weights carry, the ESS trigger fires again
-    next step) rather than paying an in-graph exact fallback whose mere
-    presence costs every step (BENCHLOG round 5). Resampling timing is a
-    free choice for the weighted-particle estimator, so this is exact;
-    persistent pathological skew degrades only variance, and
-    ``resampler="multinomial"`` remains the always-resamples escape.
+    Changes vs the reference: particle propagation samples the dynamics
+    noise as ONE batched Cholesky draw instead of a vmap of per-particle
+    MVN constructions; weights are tracked in log space; the default
+    resampler is systematic (single uniform + parallel cumsum;
+    ``resampler="multinomial"`` recovers the reference behavior). Every
+    step whose ESS falls below the threshold resamples, exactly.
 
     ``store="all"`` returns time-major ``{"weights": (T, P), "particles":
     (T, P, dx)}`` like the reference; ``store="summary"`` returns
@@ -978,31 +911,6 @@ def bootstrap_particle_filter(
     f = params.dynamics_function
     inputs = _process_input(inputs, num_timesteps)
     resample_fn = get_resampler(resampler)
-    counts_fn = get_counts_fn(resampler)
-    # TPU fast path for the counts-based resamplers: the windowed parents
-    # kernel with DEFERRAL (ops/resample_gather.py). The counts→parents
-    # scatter is row-granular DMA (9.05 ms/step at 1M inside the scan) and
-    # ANY exact in-branch fallback leaks its cost into every step (XLA
-    # hoists available-branch computations: scatter +3.6 ms, sort-based
-    # +7 ms, measured — BENCHLOG round 5). So on window overflow
-    # (pathological per-tile weight skew) the step's resampling is
-    # DEFERRED instead: weights carry unchanged, ESS stays low, and the
-    # trigger fires again next step — resampling timing is a free choice
-    # for the weighted-particle estimator, so this is exact. Decided at
-    # the filter boundary, like _filter_vmap_gate. (History: rounds 1-2
-    # measured the GATHER side at a ~5 ms row-granular-DMA floor — one-hot
-    # MXU, double buffering, and sortedness hints all tied; that part
-    # stands.)
-    from bayesianfiltering_tpu.ops.resample_gather import (
-        windowed_parents_eligible,
-        windowed_parents_or_defer,
-    )
-
-    use_windowed = counts_fn is not None and windowed_parents_eligible(
-        num_particles, emissions,
-        params.initial_mean, params.initial_covariance,
-    )
-
     log_prob_fn = params.emission_distribution_log_prob
     v_log_prob = vmap(log_prob_fn, in_axes=(0, None, None))
     v_dyn = vmap(f, in_axes=(0, 0, None))
@@ -1032,18 +940,6 @@ def bootstrap_particle_filter(
             w = jnp.exp(lw)
             uniform = jnp.full((num_particles,), -jnp.log(num_particles),
                                lw.dtype)
-            if use_windowed:
-                counts = counts_fn(key_res, w, num_particles)
-                idx, win_ok = windowed_parents_or_defer(counts,
-                                                       num_particles)
-                resampled = jnp.take(p, idx, axis=0)
-                # deferral merge: on window overflow idx is the identity,
-                # weights must NOT reset — the step becomes a no-op and
-                # the ESS trigger fires again next step.
-                return (
-                    jnp.where(win_ok, uniform, lw),
-                    jnp.where(win_ok, resampled, p),
-                )
             idx = resample_fn(key_res, w, num_particles)
             resampled = jnp.take(p, idx, axis=0)
             return uniform, resampled

@@ -8,7 +8,7 @@ filter), ``EKF`` (with optional second-order Hessian terms), ``MCLAF``
 (Monte-Carlo linearization-augmented filter), plus the composite
 ``GaussSumFilt(gauss_filt, num_models)`` bank.
 
-TPU-native rebuild notes:
+Rebuild notes:
 * the per-timestep Python ``for`` loop (ref: gaussfiltax/gaussfilt.py:106)
   becomes one ``lax.scan``; component banks are ``vmap``-ed;
 * moment approximations return clean shapes ``((dy,), (dy,dy), (dx,dy))``

@@ -6,7 +6,7 @@ with the string-mode splitting-covariance configuration
 ``set_aug_selection_params`` (modes ``prop`` / ``opt_lip`` /
 ``opt_max_grad`` / ``input`` / ``test``, ref :105-134).
 
-TPU-native rebuild: the triple M→N→L Python loop (ref :162-259) becomes
+Rebuild: the triple M→N→L Python loop (ref :162-259) becomes
 batched split/predict/update array ops inside one ``lax.scan``; weights use
 the log-domain EKF innovation likelihood instead of scipy pdf calls; the 3-D
 multinomial reduction (ref :264) is a flat resample over M·N·L weights.

@@ -3,7 +3,7 @@
 API parity with ref: gaussfiltax/particlefilt.py:11-57: ``BootstrapPF(ssm, N)``
 with ``run(ys, m0, P0)`` over an additive-noise legacy :class:`SSM`.
 
-TPU-native rebuild: the per-particle Python loops and multinomial-counts
+Rebuild: the per-particle Python loops and multinomial-counts
 expansion (ref :37-50) become one batched propagate/weight pass per scan
 step with systematic resampling (``resampler="multinomial"`` recovers the
 reference's scheme, expressed as index draws rather than count expansion).

@@ -4,7 +4,7 @@ API parity with ref: gaussfiltax/static_utils.py: ``MixtureModel``,
 ``AugmentedJointApproximation`` (one-shot ALA posterior from a single
 observation), and the ``plot_cov_ellipse`` helper.
 
-TPU-native rebuild: the per-particle loop (ref :44-59) is a single batched
+Rebuild: the per-particle loop (ref :44-59) is a single batched
 pass — sample all particles with one Cholesky draw, compute per-particle
 linearized updates with vmapped einsums.
 """

@@ -6,8 +6,8 @@ The reference inherits ``fit_em`` from its dynamax fork but implements
 family: the E-step runs the RTS smoother (exact sufficient statistics incl.
 smoothed cross-covariances), the M-step is the closed-form MLE update.
 
-TPU notes: the E-step is the smoother scan + a handful of time-axis einsum
-contractions (MXU); the M-step is a few small solves. ``fit_em`` (inherited
+Layout: the E-step is the smoother scan + a handful of time-axis einsum
+contractions; the M-step is a few small solves. ``fit_em`` (inherited
 from :class:`SSM`) vmaps the E-step over batches of sequences, so EM over
 1k sequences is data-parallel for free (shard the batch axis).
 """
@@ -31,9 +31,8 @@ from bayesianfiltering_tpu.ops.linear import (
 from bayesianfiltering_tpu.utils.linalg import psd_solve, symmetrize
 
 # Above this length the smoother pass (and hence every EM iteration) runs
-# through the temporally-parallel chunked scan + fused combine kernels —
-# 274× the sequential RTS at T=1M on v5e (BENCHLOG round 3). Below it the
-# sequential scan's lower constant wins.
+# through the temporally-parallel chunked scan; below it the sequential
+# scan's lower constant wins. The 4096 crossover is not measured on the GPU.
 _PARALLEL_SMOOTHER_MIN_T = 4096
 
 

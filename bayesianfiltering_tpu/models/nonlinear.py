@@ -375,9 +375,9 @@ class NonlinearSSM(NonlinearGaussianSSM):
         ref: gaussfiltax/models.py:240-289 (q ~ N(q0, Q), r ~ N(r0, R),
         x = f(x, q, u), y = h(x, r, u)).
 
-        TPU-first shape: ALL process/measurement noise is drawn up front as
-        two batched MVN samples (one Cholesky + one (T, n) matmul each, on
-        the MXU) and the scan itself is deterministic — per-step in-scan
+        Shape: ALL process/measurement noise is drawn up front as two
+        batched MVN samples (one Cholesky + one (T, n) matmul each) and the
+        scan itself is deterministic — per-step in-scan
         sampling would re-factorize Q/R every iteration. One scan covers
         every timestep; t=0 substitutes the initial-distribution draw.
         """

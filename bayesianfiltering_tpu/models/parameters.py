@@ -14,7 +14,7 @@ from typing import Optional
 import jax.numpy as jnp
 from jax import lax
 from jax.tree_util import register_pytree_node_class, tree_map, tree_reduce
-from typing_extensions import Protocol
+from typing import Protocol
 
 from bayesianfiltering_tpu.models.bijectors import Bijector
 from bayesianfiltering_tpu.types import Scalar

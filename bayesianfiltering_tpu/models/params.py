@@ -31,12 +31,11 @@ FnStateAndInputToEmission = Callable
 class ParamsNLSSM(NamedTuple):
     """Nonlinear SSM parameters (ref: gaussfiltax/models.py:26-51).
 
-    The four optional ``*_jacobian_*`` fields are a TPU-first extension over
-    the reference: when provided, the filters use them instead of deriving
-    Jacobians with ``jax.jacfwd``. Measured perf-neutral on the BOT flagship
-    (XLA's forward-mode tangents are equally cheap there, BENCHLOG.md round
-    2) — supply them for models whose autodiff graph is expensive or
-    non-smooth at branch points, or to pin exact linearization semantics.
+    The four optional ``*_jacobian_*`` fields are an extension over the
+    reference: when provided, the filters use them instead of deriving
+    Jacobians with ``jax.jacfwd`` — supply them for models whose autodiff
+    graph is expensive or non-smooth at branch points, or to pin exact
+    linearization semantics.
     Each callable has the same ``(state, noise, input) -> matrix`` signature
     as ``jacfwd(fn, argnums)`` would produce.
     """

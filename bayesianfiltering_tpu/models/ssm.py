@@ -20,7 +20,7 @@ import optax
 from jax import jit, lax, vmap
 from jax import tree_util as jtu
 from jax.tree_util import tree_map
-from typing_extensions import Protocol
+from typing import Protocol
 
 from bayesianfiltering_tpu.models._fit import (
     ensure_array_has_batch_dim,
@@ -88,7 +88,7 @@ class SSM(ABC):
         """Sample (states, emissions); capability match for the generic
         ancestral sampler at ref: gaussfiltax/ssm.py:169-211.
 
-        TPU-first shape: ONE ``lax.scan`` over every timestep (no
+        Shape: ONE ``lax.scan`` over every timestep (no
         concatenate of a separately-handled t=0 slice — uniform per-step
         program, uniform output layout), with per-step randomness derived
         by ``jr.fold_in`` on the step index so the stream is independent

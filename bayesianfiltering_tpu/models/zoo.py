@@ -344,8 +344,7 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
 
     ``integrator``: "euler" is the reference's explicit Euler step — which
     is UNSTABLE for L96 at the default dt=0.01 (a large fraction of noisy
-    trajectories leave f32 range within a few hundred steps; measured
-    round 3, BENCHLOG.md). "rk4" is a classic Runge–Kutta step over the
+    trajectories leave f32 range within a few hundred steps). "rk4" is a classic Runge–Kutta step over the
     same vector field — four f-evals, no control flow, stable at this dt;
     use it to generate finite long trajectories (e.g. as benchmark data)
     while filtering with whichever discretization the experiment calls for.

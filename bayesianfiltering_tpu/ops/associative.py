@@ -6,18 +6,16 @@ filtering recursion is phrased as an associative operator over per-timestep
 five-tuples ``(A, b, C, J, η)`` and combined in O(log T) depth
 (Särkkä & García-Fernández, *Temporal Parallelization of Bayesian Smoothers*,
 IEEE TAC 2021 — listed in PAPERS.md), turning a latency-bound recursion
-into batched matmuls across the time axis. Measured on TPU v5e at T=1M
-(BENCHLOG.md round 3): sequential scan 152k steps/s; flat
-``lax.associative_scan`` with the Woodbury combine 2.63M steps/s (17×) but
-a 200 s compile; the default :func:`chunked_associative_scan` schedule
-(O(T) work, constant-size graph — sequential-within-chunk BATCHED
-combines + recursion over chunk aggregates) removes the compile cliff.
-All paths match the sequential filter to 5e-7 (float64 oracle parity in
-tests). On CPU the sequential scan still wins (no per-step latency there).
+into batched matmuls across the time axis. The flat ``lax.associative_scan``
+builds an O(log T)-layer graph whose compile grows with T; the default
+:func:`chunked_associative_scan` schedule (O(T) work, constant-size graph —
+sequential-within-chunk BATCHED combines + recursion over chunk aggregates)
+keeps the graph constant. All paths match the sequential filter (float64
+oracle parity in tests).
 
 No counterpart exists in the reference (its only time handling is
-``lax.scan``, e.g. ref: gaussfiltax/inference.py:371); this is the TPU-native
-answer to SURVEY.md §5.7.
+``lax.scan``, e.g. ref: gaussfiltax/inference.py:371); this is the answer
+to SURVEY.md §5.7.
 """
 from __future__ import annotations
 
@@ -84,10 +82,8 @@ def _elements_time_invariant(params: ParamsLGSSM, emissions):
     :func:`_generic_element` re-runs the (dy,dy) psd_solve and all the
     small constant matmuls T times; here the solves run once and the
     per-step work collapses to two (T,dy)x(dy,dx) matmuls plus
-    broadcasts of the constant matrices. On-device effect is small —
-    the construction was ~1 ms of the 21 ms 1M-step filter wall
-    (BENCHLOG round 3, slope-harness protocol) — but it shrinks the
-    graph and the FLOP count at zero cost."""
+    broadcasts of the constant matrices, which shrinks the graph and the
+    FLOP count at zero cost."""
     F, Q = params.dynamics_matrix, params.dynamics_covariance
     H, R = params.emission_matrix, params.emission_covariance
     c, d = _biases(params)
@@ -128,8 +124,7 @@ def _minv_woodbury(C1, J2):
     the exact answer I), Woodbury gives
     ``inv(I + U Uᵀ J2) = I − U inv(I + Uᵀ J2 U) Uᵀ J2`` where the inner
     matrix is symmetric PD (⪰ I). Everything is batched matmuls + two
-    blocked Cholesky factorizations, instead of TPU's loop-lowered native
-    LU (the repo's standard in-scan-factorization lesson, BENCHLOG.md).
+    Cholesky factorizations instead of a general LU solve.
     Factoring C1 rather than J2 matters twice over: J2 = (HF)ᵀ S⁻¹ (HF)
     is rank-deficient whenever dy < dx (so it needs the 14-iteration
     Newton–Schulz PSD root — ~42 matmuls per combine; the round-3 original),
@@ -191,8 +186,8 @@ def chunked_associative_scan(combine, elems, identity, chunk: int = 128,
     4. one batched combine broadcasting each chunk's exclusive prefix
        into its in-chunk prefixes (second pass over HBM).
 
-    Depth is O(chunk·log_chunk T) instead of O(log T) — irrelevant on a
-    single chip where step 2's batched combines saturate bandwidth anyway.
+    Depth is O(chunk·log_chunk T) instead of O(log T); step 2's combines
+    are batched over all G chunks, so each scan step is one wide kernel.
 
     ``combine`` must accept broadcastable leading batch axes and be
     associative; ``identity`` is a tuple of single-element arrays that is
@@ -201,12 +196,6 @@ def chunked_associative_scan(combine, elems, identity, chunk: int = 128,
     flip → forward scan with the SAME operator → flip (so, as there, a
     time-ordered suffix product wants the caller to pass the
     operand-swapped operator).
-
-    (A fused in-kernel sequential scan replacing step 2's per-combine
-    kernel launches was built and measured — NEUTRAL-to-slightly-slower
-    at T=1M on v5e (20.8 → 22.0 ms, slope-harness protocol) because the
-    combine is VPU-compute-bound and launch overhead is already hidden;
-    deleted, BENCHLOG round 3.)
     """
     if reverse:
         flipped = tuple(jnp.flip(x, axis=0) for x in elems)
@@ -269,21 +258,8 @@ def chunked_associative_scan(combine, elems, identity, chunk: int = 128,
 
 def _run_filter_scan(elems, solver: str, chunk):
     """Dispatch the filtering prefix scan: chunked two-level (default for
-    long sequences) or the flat ``lax.associative_scan``(``chunk=None``).
-
-    With the Woodbury solver on TPU at dx ≤ 8, every combine runs as ONE
-    fused Pallas kernel over the batched bank (ops/bank_combine.py) —
-    measured 63% of the chunked filter's wall was ~150 separate small XLA
-    fusions per combine."""
+    long sequences) or the flat ``lax.associative_scan``(``chunk=None``)."""
     fn = functools.partial(_combine, solver=solver)
-    if solver == "woodbury":
-        from bayesianfiltering_tpu.ops.bank_combine import (
-            bank_filter_combine,
-            should_use_pallas,
-        )
-
-        if should_use_pallas(elems[0].shape[-1], *elems):
-            fn = bank_filter_combine
     if chunk is None:
         return lax.associative_scan(fn, elems)
     dx = elems[0].shape[-1]
@@ -293,8 +269,8 @@ def _run_filter_scan(elems, solver: str, chunk):
 
 def _resolve_chunk(chunk, T):
     """``chunk="auto"``: flat associative scan for short sequences (its
-    O(log T) graph is small there and has the lowest constant), two-level
-    at 128 beyond — measured crossover on v5e, BENCHLOG.md round 3."""
+    O(log T) graph is small there), two-level at 128 beyond. The 4096
+    crossover is not measured on the GPU."""
     if chunk == "auto":
         return None if T <= 4096 else 128
     return chunk
@@ -340,9 +316,8 @@ def parallel_kalman_filter(params: ParamsLGSSM, emissions: jax.Array,
     extra propagation; marginal loglik from the innovation form).
 
     ``solver``: "woodbury" (default) runs each combine's inverses as
-    batched matmuls + blocked Cholesky (see :func:`_minv_woodbury`);
-    "native" uses ``jnp.linalg.solve`` (loop-lowered on TPU; reference
-    semantics for accuracy comparisons).
+    batched matmuls + Cholesky (see :func:`_minv_woodbury`); "native" uses
+    ``jnp.linalg.solve`` (reference semantics for accuracy comparisons).
 
     ``chunk``: "auto" (default) picks the scan schedule by sequence
     length; an int runs the two-level :func:`chunked_associative_scan`
@@ -377,13 +352,8 @@ def _run_smoother_scan(elems, chunk):
     """Reverse suffix scan of smoothing elements over the chunked / flat
     schedule. In both, the REVERSE scan's left operand is the LATER-time
     partial product, so the time-ordered combine's roles are swapped."""
-    from bayesianfiltering_tpu.ops.bank_combine import should_use_pallas
-    from bayesianfiltering_tpu.ops.bank_smoother import bank_smoother_combine
-
     dx = elems[0].shape[-1]
     combine = _smoother_combine
-    if should_use_pallas(dx, *elems):
-        combine = bank_smoother_combine
     if chunk is None:
         return lax.associative_scan(
             lambda a, b: combine(b, a), elems, reverse=True)
@@ -394,17 +364,20 @@ def _run_smoother_scan(elems, chunk):
 
 
 def _smoother_elements(fm, fP, pm, pP, F):
-    """Per-step RTS elements ``(G, g, L)`` for t < T-1 — fused kernel on
-    TPU at dx ≤ 8 (ops/bank_smoother.py), batched XLA elsewhere."""
-    from bayesianfiltering_tpu.ops.bank_smoother import bank_smoother_elements
-
-    return bank_smoother_elements(fm, fP, pm, pP, F)
+    """Per-step RTS elements ``(G, g, L)`` for t < T-1, batched over the
+    time axis: the smoothing gain ``G_t = P^f_t F_tᵀ (P^p_t)⁻¹``,
+    ``g_t = m^f_t − G_t m^p_t`` and ``L_t = P^f_t − G_t P^p_t G_tᵀ``.
+    ``F`` is (T, dx, dx) (broadcast a shared transition before calling)."""
+    G = vmap(lambda Pf, Pp, Ft: psd_solve(Pp, Ft @ Pf).T)(fP, pP, F)
+    g = fm - jnp.einsum("tij,tj->ti", G, pm)
+    L = symmetrize(fP - jnp.einsum("tij,tjk,tlk->til", G, pP, G))
+    return G, g, L
 
 
 def _smoother_combine(elem_earlier, elem_later):
     """Associative combination of RTS smoothing elements
     (Särkkä & G-F, Lemma 10): pure matmuls — no solves, so every combine
-    stage is MXU-batched across the time axis.
+    stage is batched across the time axis.
 
     ``x_t | x_s ~ N(E x_s + g, L)`` composed over earlier ∘ later."""
     E1, g1, L1 = elem_earlier

@@ -1,32 +1,35 @@
-"""Fused bank EKF measurement update — one Pallas kernel per mixture bank.
+"""Mixture-bank EKF update and predict covariance, one Triton kernel each.
 
-The GSF/AGSF hot loop conditions a bank of M small Gaussians on one emission
-(ref: gaussfiltax/inference.py:72-105 vmapped over components, :303-377).
-Under XLA that is ~40 small fusions per scan step, each on (M, d, d) arrays
-far below the MXU tile — the filters are per-op latency-bound, not
-FLOP-bound (BENCHLOG.md).  This module fuses the ENTIRE update
+The GSF/AGSF scan step conditions a bank of M small Gaussians on one
+emission (ref: gaussfiltax/inference.py:72-105, vmapped over components)
+and propagates their covariances. The plain XLA form of that step is a
+chain of small batched contractions plus a Cholesky and a triangular
+inverse on ``(M, d, d)`` arrays: several kernel launches and round trips
+through device memory per scan step, at a fixed M, T times in sequence.
 
-    S    = Rt + H P Hᵀ            (+ relative diagonal floor)
-    L    = chol(S),  L⁻¹ by forward substitution
-    K    = (S⁻¹ H P)ᵀ
-    Σ    = (I − K H) P (I − K H)ᵀ + K Rt Kᵀ      (Joseph form)
-    μ    = m + K (y − ŷ)
-    ll   = log N(y − ŷ | 0, S)
+Here each half is ONE Pallas kernel on the Triton route. A program owns a
+power-of-two block of components (one component per thread). It reads each
+component's matrices straight from the natural ``(M, d, e)`` layout, with
+the tail block masked, so there is no transpose and no padding; it keeps the
+whole ``d×d`` lattice in registers (every scalar of every matrix is a
+block-wide vector, fully unrolled at trace time — d is tiny and static);
+and it writes the results. Nothing is carried from one program to another.
 
-into ONE Pallas kernel in the bank-major layout of
-:mod:`~bayesianfiltering_tpu.ops.pallas_kernels`: the bank index M lies
-along the 128-wide lane dimension and every scalar of the d×d lattice is a
-separate M-wide VPU statement, fully unrolled at trace time (d is tiny and
-static).  Model-specific pieces (H_x/H_r Jacobian evaluation, ŷ = h(m))
-stay outside in XLA — the kernel is pure linear algebra.
+    update:   S = Rt + H P Hᵀ  (+ relative diagonal floor)
+              L = chol(S), L⁻¹ by forward substitution
+              K = (S⁻¹ H P)ᵀ
+              Σ = (I − K H) P (I − K H)ᵀ + K Rt Kᵀ      (Joseph form)
+              μ = m + K innov,  ll = log N(innov | 0, S)
+    predict:  Σ⁺ = F_x P F_xᵀ + F_q Q F_qᵀ
 
-Numerics match :func:`bayesianfiltering_tpu.ops.ekf.ekf_condition_on`
-exactly (same relative jitter floor, Joseph form, shared-factor
-log-likelihood) and are f32-exact on the VPU — no bf16 matmul passes.
+Numerics match :func:`bayesianfiltering_tpu.ops.ekf.chol_update_precomputed`
+(same relative floor, Joseph form, shared-factor log-likelihood) in plain
+float32 FMA arithmetic — no tensor cores, so no TF32. The kernels are
+forward-only: a ``jax.custom_vjp`` differentiates through the XLA
+reference. Model-specific pieces (Jacobians, ŷ = h(m)) stay outside in XLA.
 
-Differentiation: the public entry point carries a ``jax.custom_vjp`` whose
-backward pass re-runs the pure-XLA reference implementation under
-``jax.vjp`` — the kernel is forward-only.
+Which implementation runs is decided in one place, :func:`bank_impl`, from
+the backend and the shapes.
 """
 from __future__ import annotations
 
@@ -35,56 +38,116 @@ import math
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from bayesianfiltering_tpu.ops.pallas_kernels import (
-    LANES,
-    _HAS_PALLAS,
-    _pad_banks,
-    from_bank_major,
-    to_bank_major,
+from bayesianfiltering_tpu.ops.ekf import (
+    _REL_JITTER,
+    EKFUpdate,
+    _degenerate_update,
+    _residual,
+    _static_num_iter,
+    chol_update_precomputed,
 )
-
-if _HAS_PALLAS:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+from bayesianfiltering_tpu.utils.linalg import symmetrize
 
 _LOG_2PI = math.log(2.0 * math.pi)
-_REL_JITTER = 1e-6  # keep in sync with ops/ekf.py
+# Components per program: one per thread at four warps.
+_BLOCK = 128
+_NUM_WARPS = 4
+# Largest state / emission / noise width the kernels take. The unrolled
+# lattice lives in registers and Triton compiles it as one straight-line
+# block: at dx = dy = 8 (~4k FMAs per component) the compile did not finish
+# in 18 minutes on an H100, while dx = dy = 1 compiles in 0.2 s.
+MAX_DIM = 4
+
+
+def _target_platform() -> str:
+    """The platform being traced for: ``jax.default_device`` when a caller
+    set one (e.g. a CPU reference run next to a GPU), else the default
+    backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
+
+
+def bank_impl(*dims, dtype, jitter=0.0) -> str:
+    """The implementation the bank primitives run: ``"triton"`` on a GPU for
+    float32 banks whose widths are all ≤ :data:`MAX_DIM` (with a static
+    jitter, which the kernel bakes in), ``"xla"`` otherwise.
+
+    A shape the kernel claims is never sent elsewhere on the card, and a
+    kernel that fails to lower raises."""
+    if (_target_platform() in ("gpu", "cuda")
+            and jnp.dtype(dtype) == jnp.float32
+            and all(d <= MAX_DIM for d in dims)
+            and isinstance(jitter, (int, float))):
+        return "triton"
+    return "xla"
 
 
 # ---------------------------------------------------------------------------
-# Kernel body: fully unrolled over the (dy, dx) lattice; every statement is
-# an M-lane-wide VPU op on a (1, LANES) row of the bank-major blocks.
+# Kernel plumbing: masked block loads/stores of one scalar entry per component
 # ---------------------------------------------------------------------------
 
-def _bank_update_kernel(dx: int, dy: int, jitter: float,
-                        m_ref, p_ref, hx_ref, rt_ref, inn_ref,
-                        ll_ref, mean_ref, cov_ref, k_ref):
-    P = {(i, j): p_ref[i * dx + j, :] for i in range(dx) for j in range(dx)}
-    H = {(i, j): hx_ref[i * dx + j, :] for i in range(dy) for j in range(dx)}
-    Rt = {(i, j): rt_ref[i * dy + j, :] for i in range(dy) for j in range(dy)}
-    inn = {i: inn_ref[i, :] for i in range(dy)}
+def _block(num):
+    start = pl.program_id(0) * _BLOCK
+    rows = pl.ds(start, _BLOCK)
+    mask = start + jnp.arange(_BLOCK) < num
+    return rows, mask
 
-    # hp = H @ P  (dy, dx)
-    hp = {}
-    for i in range(dy):
-        for k in range(dx):
-            acc = H[(i, 0)] * P[(0, k)]
-            for j in range(1, dx):
-                acc += H[(i, j)] * P[(j, k)]
-            hp[(i, k)] = acc
 
-    # S = Rt + hp @ Hᵀ, symmetrized by construction (fill i<=j, mirror)
+def _load_mat(ref, rows, mask, r, c, diag_other=0.0):
+    """``{(i, j): ref[rows, i, j]}`` — dead tail lanes read ``diag_other`` on
+    the diagonal (an identity keeps their factorization finite) and 0 off
+    it."""
+    return {
+        (i, j): plgpu.load(ref.at[rows, i, j], mask=mask,
+                           other=diag_other if i == j else 0.0)
+        for i in range(r) for j in range(c)
+    }
+
+
+def _load_vec(ref, rows, mask, r):
+    return {i: plgpu.load(ref.at[rows, i], mask=mask, other=0.0)
+            for i in range(r)}
+
+
+def _dot(terms):
+    acc = None
+    for a, b in terms:
+        acc = a * b if acc is None else acc + a * b
+    return acc
+
+
+def _store_sym(ref, rows, mask, lattice, n):
+    for i in range(n):
+        for j in range(n):
+            v = lattice[(min(i, j), max(i, j))]
+            plgpu.store(ref.at[rows, i, j], v, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Update kernel
+# ---------------------------------------------------------------------------
+
+def _update_kernel(m_ref, p_ref, hx_ref, rt_ref, inn_ref,
+                   ll_ref, mean_ref, cov_ref, k_ref, *, dx, dy, jitter, num):
+    rows, mask = _block(num)
+    P = _load_mat(p_ref, rows, mask, dx, dx)
+    H = _load_mat(hx_ref, rows, mask, dy, dx)
+    Rt = _load_mat(rt_ref, rows, mask, dy, dy, diag_other=1.0)
+    inn = _load_vec(inn_ref, rows, mask, dy)
+
+    hp = {(i, k): _dot((H[(i, j)], P[(j, k)]) for j in range(dx))
+          for i in range(dy) for k in range(dx)}                  # H P
     S = {}
     for i in range(dy):
         for j in range(i, dy):
-            acc = 0.5 * (Rt[(i, j)] + Rt[(j, i)])
-            for k in range(dx):
-                acc += hp[(i, k)] * H[(j, k)]
-            S[(i, j)] = acc
-            S[(j, i)] = acc
-
-    # relative diagonal floor (ops/ekf.py:_chol_update)
+            S[(i, j)] = 0.5 * (Rt[(i, j)] + Rt[(j, i)]) + _dot(
+                (hp[(i, k)], H[(j, k)]) for k in range(dx))
+            S[(j, i)] = S[(i, j)]
     maxd = jnp.abs(S[(0, 0)])
     for i in range(1, dy):
         maxd = jnp.maximum(maxd, jnp.abs(S[(i, i)]))
@@ -92,209 +155,116 @@ def _bank_update_kernel(dx: int, dy: int, jitter: float,
     for i in range(dy):
         S[(i, i)] = S[(i, i)] + floor
 
-    # Cholesky–Crout, and log det accumulation
-    L = {}
-    sumlog = None
+    # Cholesky–Crout, with the log-determinant on the way
+    L, logdet = {}, None
     for j in range(dy):
-        acc = S[(j, j)]
+        d = S[(j, j)]
         for k in range(j):
-            acc -= L[(j, k)] * L[(j, k)]
-        diag = jnp.sqrt(acc)
-        L[(j, j)] = diag
-        lg = jnp.log(diag)
-        sumlog = lg if sumlog is None else sumlog + lg
-        inv_diag = 1.0 / diag
+            d = d - L[(j, k)] * L[(j, k)]
+        d = jnp.sqrt(d)
+        L[(j, j)] = d
+        logdet = jnp.log(d) if logdet is None else logdet + jnp.log(d)
+        inv_d = 1.0 / d
         for i in range(j + 1, dy):
-            acc = S[(i, j)]
+            s = S[(i, j)]
             for k in range(j):
-                acc -= L[(i, k)] * L[(j, k)]
-            L[(i, j)] = acc * inv_diag
-
-    # linv = L⁻¹ by forward substitution into the identity (lower triangular)
-    linv = {}
+                s = s - L[(i, k)] * L[(j, k)]
+            L[(i, j)] = s * inv_d
+    # L⁻¹ by forward substitution
+    Li = {}
     for j in range(dy):
-        linv[(j, j)] = 1.0 / L[(j, j)]
+        Li[(j, j)] = 1.0 / L[(j, j)]
         for i in range(j + 1, dy):
-            acc = L[(i, j)] * linv[(j, j)]
-            for k in range(j + 1, i):
-                acc += L[(i, k)] * linv[(k, j)]
-            linv[(i, j)] = -acc / L[(i, i)]
-
-    # Z = L⁻¹ hp ; W = L⁻ᵀ Z = S⁻¹ H P ; K = Wᵀ  (dx, dy)
-    Z = {}
-    for i in range(dy):
-        for k in range(dx):
-            acc = None
-            for j in range(i + 1):
-                term = linv[(i, j)] * hp[(j, k)]
-                acc = term if acc is None else acc + term
-            Z[(i, k)] = acc
-    K = {}
-    for i in range(dy):
-        for k in range(dx):
-            acc = None
-            for j in range(i, dy):
-                term = linv[(j, i)] * Z[(j, k)]
-                acc = term if acc is None else acc + term
-            K[(k, i)] = acc  # transpose on the fly
+            Li[(i, j)] = -_dot((L[(i, k)], Li[(k, j)])
+                               for k in range(j, i)) / L[(i, i)]
+    # Z = L⁻¹ H P;  K = (L⁻ᵀ Z)ᵀ = (S⁻¹ H P)ᵀ,  (dx, dy)
+    Z = {(i, k): _dot((Li[(i, j)], hp[(j, k)]) for j in range(i + 1))
+         for i in range(dy) for k in range(dx)}
+    K = {(k, i): _dot((Li[(j, i)], Z[(j, k)]) for j in range(i, dy))
+         for i in range(dy) for k in range(dx)}
     for k in range(dx):
         for i in range(dy):
-            k_ref[k * dy + i, :] = K[(k, i)]
+            plgpu.store(k_ref.at[rows, k, i], K[(k, i)], mask=mask)
 
-    # A = I − K H  (dx, dx)
+    # Joseph form: A = I − K H;  Σ = A P Aᵀ + (K Rt) Kᵀ
     A = {}
     for i in range(dx):
         for j in range(dx):
-            acc = None
-            for l in range(dy):
-                term = K[(i, l)] * H[(l, j)]
-                acc = term if acc is None else acc + term
-            A[(i, j)] = -acc if i != j else 1.0 - acc
+            kh = _dot((K[(i, l)], H[(l, j)]) for l in range(dy))
+            A[(i, j)] = 1.0 - kh if i == j else -kh
+    AP = {(i, j): _dot((A[(i, k)], P[(k, j)]) for k in range(dx))
+          for i in range(dx) for j in range(dx)}
+    KR = {(i, b): _dot((K[(i, a)], Rt[(a, b)]) for a in range(dy))
+          for i in range(dx) for b in range(dy)}
+    cov = {(i, j): _dot([(AP[(i, k)], A[(j, k)]) for k in range(dx)]
+                        + [(KR[(i, b)], K[(j, b)]) for b in range(dy)])
+           for i in range(dx) for j in range(i, dx)}
+    _store_sym(cov_ref, rows, mask, cov, dx)
 
-    # Σ = A P Aᵀ + K Rt Kᵀ  (symmetric: fill i<=j, mirror)
-    AP = {}
+    m = _load_vec(m_ref, rows, mask, dx)
     for i in range(dx):
-        for j in range(dx):
-            acc = A[(i, 0)] * P[(0, j)]
-            for k in range(1, dx):
-                acc += A[(i, k)] * P[(k, j)]
-            AP[(i, j)] = acc
-    KR = {}
-    for i in range(dx):
-        for b in range(dy):
-            acc = K[(i, 0)] * Rt[(0, b)]
-            for a in range(1, dy):
-                acc += K[(i, a)] * Rt[(a, b)]
-            KR[(i, b)] = acc
-    for i in range(dx):
-        for j in range(i, dx):
-            acc = AP[(i, 0)] * A[(j, 0)]
-            for k in range(1, dx):
-                acc += AP[(i, k)] * A[(j, k)]
-            for b in range(dy):
-                acc += KR[(i, b)] * K[(j, b)]
-            cov_ref[i * dx + j, :] = acc
-            if i != j:
-                cov_ref[j * dx + i, :] = acc
-
-    # μ = m + K innov ; z = L⁻¹ innov ; ll
-    for i in range(dx):
-        acc = m_ref[i, :]
-        for l in range(dy):
-            acc += K[(i, l)] * inn[l]
-        mean_ref[i, :] = acc
+        mu = m[i] + _dot((K[(i, l)], inn[l]) for l in range(dy))
+        plgpu.store(mean_ref.at[rows, i], mu, mask=mask)
     zsq = None
     for i in range(dy):
-        acc = None
-        for j in range(i + 1):
-            term = linv[(i, j)] * inn[j]
-            acc = term if acc is None else acc + term
-        sq = acc * acc
-        zsq = sq if zsq is None else zsq + sq
-    ll_ref[0, :] = -0.5 * (dy * _LOG_2PI + 2.0 * sumlog + zsq)
+        z = _dot((Li[(i, j)], inn[j]) for j in range(i + 1))
+        zsq = z * z if zsq is None else zsq + z * z
+    plgpu.store(ll_ref.at[rows], -0.5 * (dy * _LOG_2PI + 2.0 * logdet + zsq),
+                mask=mask)
 
 
-# ---------------------------------------------------------------------------
-# XLA reference (also the VJP path) — mirrors ops/ekf.py:_chol_update but on
-# precomputed linearizations, vmapped over the bank.
-# ---------------------------------------------------------------------------
-
-def _update_xla(m, P, Hx, Rt, innov, jitter):
-    # The one shared update implementation (ops/ekf.py) — the kernel is
-    # validated against it and the VJP re-runs it.
-    from bayesianfiltering_tpu.ops.ekf import chol_update_precomputed
-
-    return jax.vmap(chol_update_precomputed, in_axes=(0, 0, 0, 0, 0, None))(
-        m, P, Hx, Rt, innov, jitter
-    )
-
-
-# ---------------------------------------------------------------------------
-# Pallas dispatch
-# ---------------------------------------------------------------------------
-
-def _update_pallas(m, P, Hx, Rt, innov, jitter: float):
+def _update_pallas(m, P, Hx, Rt, innov, jitter: float, interpret=False):
     M, dx = m.shape
     dy = innov.shape[-1]
-    mm = to_bank_major(m[:, :, None])            # (dx, M)
-    pm, _ = _pad_banks(to_bank_major(P))
-    hm, _ = _pad_banks(to_bank_major(Hx))
-    im, _ = _pad_banks(to_bank_major(innov[:, :, None]))
-    mm, _ = _pad_banks(mm)
-    rm = to_bank_major(Rt)
-    # padded lanes get Rt = I so S = I there: chol/log/reciprocal stay finite
-    mp = pm.shape[-1]
-    if mp != M:
-        eye_cols = to_bank_major(
-            jnp.broadcast_to(jnp.eye(dy, dtype=Rt.dtype), (mp - M, dy, dy))
-        )
-        rm = jnp.concatenate([rm, eye_cols], axis=-1)
-    kernel = functools.partial(_bank_update_kernel, dx, dy, float(jitter))
-    spec = lambda rows: pl.BlockSpec((rows, LANES), lambda i: (0, i),
-                                     memory_space=pltpu.VMEM)
-    ll, mean, cov, K = pl.pallas_call(
-        kernel,
+    dt = m.dtype
+    return tuple(pl.pallas_call(
+        functools.partial(_update_kernel, dx=dx, dy=dy, jitter=float(jitter),
+                          num=M),
         out_shape=[
-            jax.ShapeDtypeStruct((1, mp), m.dtype),
-            jax.ShapeDtypeStruct((dx, mp), m.dtype),
-            jax.ShapeDtypeStruct((dx * dx, mp), m.dtype),
-            jax.ShapeDtypeStruct((dx * dy, mp), m.dtype),
+            jax.ShapeDtypeStruct((M,), dt),
+            jax.ShapeDtypeStruct((M, dx), dt),
+            jax.ShapeDtypeStruct((M, dx, dx), dt),
+            jax.ShapeDtypeStruct((M, dx, dy), dt),
         ],
-        grid=(mp // LANES,),
-        in_specs=[spec(dx), spec(dx * dx), spec(dy * dx), spec(dy * dy),
-                  spec(dy)],
-        out_specs=[spec(1), spec(dx), spec(dx * dx), spec(dx * dy)],
-    )(mm, pm, hm, rm, im)
-    return (
-        ll[0, :M],
-        from_bank_major(mean[:, :M], dx, 1)[:, :, 0],
-        from_bank_major(cov[:, :M], dx, dx),
-        from_bank_major(K[:, :M], dx, dy),
-    )
+        grid=(pl.cdiv(M, _BLOCK),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="bank_ekf_update",
+    )(m, P, Hx, Rt, innov))
 
 
-# ---------------------------------------------------------------------------
-# Public entry point, differentiable via the XLA reference
-# ---------------------------------------------------------------------------
-
-def _should_use_pallas(dx: int, dy: int, jitter, *arrays) -> bool:
-    from bayesianfiltering_tpu.ops.fused_ekf import _is_vmapped
-
-    return (
-        _HAS_PALLAS
-        and jax.default_backend() == "tpu"
-        and dx <= 8
-        and dy <= 8
-        and isinstance(jitter, (int, float))
-        # a vmapped pallas_call runs sequentially per batch element; let
-        # XLA batch over B·M lanes instead (see ops/fused_ekf._is_vmapped)
-        and not _is_vmapped(*arrays)
-    )
+def _update_xla(m, P, Hx, Rt, innov, jitter):
+    # The one shared update implementation (ops/ekf.py): the kernel is
+    # validated against it and the VJP re-runs it.
+    return jax.vmap(chol_update_precomputed, in_axes=(0, 0, 0, 0, 0, None))(
+        m, P, Hx, Rt, innov, jitter)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6))
-def _bank_chol_update(m, P, Hx, Rt, innov, jitter, use_pallas):
-    if use_pallas:
-        return _update_pallas(m, P, Hx, Rt, innov, jitter)
-    return _update_xla(m, P, Hx, Rt, innov, jitter)
+def _bank_chol_update(m, P, Hx, Rt, innov, jitter, impl):
+    if impl == "xla":
+        return _update_xla(m, P, Hx, Rt, innov, jitter)
+    return _update_pallas(m, P, Hx, Rt, innov, jitter,
+                          interpret=impl == "interpret")
 
 
-def _fwd(m, P, Hx, Rt, innov, jitter, use_pallas):
-    out = _bank_chol_update(m, P, Hx, Rt, innov, jitter, use_pallas)
-    return out, (m, P, Hx, Rt, innov)
+def _update_fwd(m, P, Hx, Rt, innov, jitter, impl):
+    return (_bank_chol_update(m, P, Hx, Rt, innov, jitter, impl),
+            (m, P, Hx, Rt, innov))
 
 
-def _bwd(jitter, use_pallas, res, cts):
-    m, P, Hx, Rt, innov = res
-    _, vjp = jax.vjp(lambda *a: _update_xla(*a, jitter), m, P, Hx, Rt, innov)
+def _update_bwd(jitter, impl, res, cts):
+    _, vjp = jax.vjp(lambda *a: _update_xla(*a, jitter), *res)
     return vjp(cts)
 
 
-_bank_chol_update.defvjp(_fwd, _bwd)
+_bank_chol_update.defvjp(_update_fwd, _update_bwd)
 
 
-def bank_chol_update(m, P, Hx, Rt, innov, jitter=0.0, use_pallas=None):
-    """Fused EKF measurement update over a bank of M Gaussians.
+def bank_chol_update(m, P, Hx, Rt, innov, jitter=0.0):
+    """EKF measurement update over a bank of M Gaussians.
 
     Args:
       m:     (M, dx) prior means.
@@ -306,160 +276,112 @@ def bank_chol_update(m, P, Hx, Rt, innov, jitter=0.0, use_pallas=None):
       jitter: absolute diagonal jitter added on top of the relative floor.
 
     Returns ``(ll, mean, cov, gain)`` with shapes
-    ``(M,), (M, dx), (M, dx, dx), (M, dx, dy)`` — identical semantics to
-    vmapping :func:`bayesianfiltering_tpu.ops.ekf.ekf_condition_on` minus
-    the Jacobian evaluation. On TPU with dx, dy ≤ 8 the whole update runs
-    as one Pallas kernel (M-wide lane ops); elsewhere as the XLA reference.
+    ``(M,), (M, dx), (M, dx, dx), (M, dx, dy)`` — the semantics of vmapping
+    :func:`bayesianfiltering_tpu.ops.ekf.chol_update_precomputed`.
     """
-    if not isinstance(jitter, (int, float)):
-        # Traced jitter cannot ride custom_vjp's nondiff_argnums; the plain
-        # XLA path is natively differentiable and handles it.
+    impl = bank_impl(m.shape[-1], innov.shape[-1], dtype=m.dtype,
+                     jitter=jitter)
+    if impl == "xla":
+        # natively differentiable, and takes a traced jitter
         return _update_xla(m, P, Hx, Rt, innov, jitter)
-    if use_pallas is None:
-        use_pallas = _should_use_pallas(m.shape[-1], innov.shape[-1], jitter,
-                                        m, P, Hx, Rt, innov)
-    return _bank_chol_update(m, P, Hx, Rt, innov, float(jitter),
-                             bool(use_pallas))
+    return _bank_chol_update(m, P, Hx, Rt, innov, float(jitter), impl)
 
 
 # ---------------------------------------------------------------------------
-# Fused bank predict covariance: Σ⁺ = F_x P F_xᵀ + F_q Q F_qᵀ
+# Predict covariance kernel: Σ⁺ = F_x P F_xᵀ + F_q Q F_qᵀ
 # ---------------------------------------------------------------------------
 
-def _bank_predict_kernel(dx: int, dq: int, fx_ref, p_ref, fq_ref, q_ref,
-                         cov_ref):
-    Fx = {(i, j): fx_ref[i * dx + j, :] for i in range(dx) for j in range(dx)}
-    P = {(i, j): p_ref[i * dx + j, :] for i in range(dx) for j in range(dx)}
-    Fq = {(i, j): fq_ref[i * dq + j, :] for i in range(dx) for j in range(dq)}
-    Q = {(i, j): q_ref[i * dq + j, :] for i in range(dq) for j in range(dq)}
-
-    FP = {}
-    for i in range(dx):
-        for j in range(dx):
-            acc = Fx[(i, 0)] * P[(0, j)]
-            for k in range(1, dx):
-                acc += Fx[(i, k)] * P[(k, j)]
-            FP[(i, j)] = acc
-    FQ = {}
-    for i in range(dx):
-        for j in range(dq):
-            acc = Fq[(i, 0)] * Q[(0, j)]
-            for k in range(1, dq):
-                acc += Fq[(i, k)] * Q[(k, j)]
-            FQ[(i, j)] = acc
-    for i in range(dx):
-        for j in range(i, dx):
-            acc = FP[(i, 0)] * Fx[(j, 0)]
-            for k in range(1, dx):
-                acc += FP[(i, k)] * Fx[(j, k)]
-            for k in range(dq):
-                acc += FQ[(i, k)] * Fq[(j, k)]
-            cov_ref[i * dx + j, :] = acc
-            if i != j:
-                cov_ref[j * dx + i, :] = acc
+def _predict_kernel(fx_ref, p_ref, fq_ref, q_ref, cov_ref, *, dx, dq, num):
+    rows, mask = _block(num)
+    Fx = _load_mat(fx_ref, rows, mask, dx, dx)
+    P = _load_mat(p_ref, rows, mask, dx, dx)
+    Fq = _load_mat(fq_ref, rows, mask, dx, dq)
+    Q = {(i, j): plgpu.load(q_ref.at[i, j])
+         for i in range(dq) for j in range(dq)}
+    FP = {(i, j): _dot((Fx[(i, k)], P[(k, j)]) for k in range(dx))
+          for i in range(dx) for j in range(dx)}
+    FQ = {(i, j): _dot((Fq[(i, k)], Q[(k, j)]) for k in range(dq))
+          for i in range(dx) for j in range(dq)}
+    cov = {(i, j): _dot([(FP[(i, k)], Fx[(j, k)]) for k in range(dx)]
+                        + [(FQ[(i, k)], Fq[(j, k)]) for k in range(dq)])
+           for i in range(dx) for j in range(i, dx)}
+    _store_sym(cov_ref, rows, mask, cov, dx)
 
 
-def _predict_cov_xla(Fx, P, Fq, Q):
-    from bayesianfiltering_tpu.utils.linalg import symmetrize
-
-    return symmetrize(
-        jnp.einsum("mik,mkl,mjl->mij", Fx, P, Fx)
-        + jnp.einsum("mik,kl,mjl->mij", Fq, Q, Fq)
-    )
-
-
-def _predict_cov_pallas(Fx, P, Fq, Q):
+def _predict_pallas(Fx, P, Fq, Q, interpret=False):
     M, dx = Fx.shape[0], Fx.shape[-1]
     dq = Fq.shape[-1]
-    fm, _ = _pad_banks(to_bank_major(Fx))
-    pm, _ = _pad_banks(to_bank_major(P))
-    qm_f, _ = _pad_banks(to_bank_major(Fq))
-    mp = fm.shape[-1]
-    qb = to_bank_major(jnp.broadcast_to(Q, (mp, dq, dq)))
-    spec = lambda rows: pl.BlockSpec((rows, LANES), lambda i: (0, i),
-                                     memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_bank_predict_kernel, dx, dq),
-        out_shape=jax.ShapeDtypeStruct((dx * dx, mp), Fx.dtype),
-        grid=(mp // LANES,),
-        in_specs=[spec(dx * dx), spec(dx * dx), spec(dx * dq), spec(dq * dq)],
-        out_specs=spec(dx * dx),
-    )(fm, pm, qm_f, qb)
-    return from_bank_major(out[:, :M], dx, dx)
+    return pl.pallas_call(
+        functools.partial(_predict_kernel, dx=dx, dq=dq, num=M),
+        out_shape=jax.ShapeDtypeStruct((M, dx, dx), P.dtype),
+        grid=(pl.cdiv(M, _BLOCK),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="bank_ekf_predict_cov",
+    )(Fx, P, Fq, Q)
+
+
+def _predict_xla(Fx, P, Fq, Q):
+    return symmetrize(jnp.einsum("mik,mkl,mjl->mij", Fx, P, Fx)
+                      + jnp.einsum("mik,kl,mjl->mij", Fq, Q, Fq))
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
-def _bank_predict_cov(Fx, P, Fq, Q, use_pallas):
-    if use_pallas:
-        return _predict_cov_pallas(Fx, P, Fq, Q)
-    return _predict_cov_xla(Fx, P, Fq, Q)
+def _bank_predict_cov(Fx, P, Fq, Q, impl):
+    if impl == "xla":
+        return _predict_xla(Fx, P, Fq, Q)
+    return _predict_pallas(Fx, P, Fq, Q, interpret=impl == "interpret")
 
 
-def _predict_fwd(Fx, P, Fq, Q, use_pallas):
-    return _bank_predict_cov(Fx, P, Fq, Q, use_pallas), (Fx, P, Fq, Q)
+def _predict_fwd(Fx, P, Fq, Q, impl):
+    return _bank_predict_cov(Fx, P, Fq, Q, impl), (Fx, P, Fq, Q)
 
 
-def _predict_bwd(use_pallas, res, ct):
-    _, vjp = jax.vjp(_predict_cov_xla, *res)
+def _predict_bwd(impl, res, ct):
+    _, vjp = jax.vjp(_predict_xla, *res)
     return vjp(ct)
 
 
 _bank_predict_cov.defvjp(_predict_fwd, _predict_bwd)
 
 
-def bank_predict_cov(Fx, P, Fq, Q, use_pallas=None):
+def bank_predict_cov(Fx, P, Fq, Q):
     """Σ⁺[m] = F_x[m] P[m] F_x[m]ᵀ + F_q[m] Q F_q[m]ᵀ for a bank of M
-    components, fused into one Pallas kernel on TPU (XLA einsum elsewhere).
-
-    ``Q`` is the shared (dq, dq) dynamics noise covariance."""
-    from bayesianfiltering_tpu.ops.fused_ekf import _is_vmapped
-
-    dx, dq = Fx.shape[-1], Fq.shape[-1]
-    if use_pallas is None:
-        use_pallas = (
-            _HAS_PALLAS and jax.default_backend() == "tpu"
-            and dx <= 8 and dq <= 8 and not _is_vmapped(Fx, P, Fq, Q)
-        )
-    return _bank_predict_cov(Fx, P, Fq, Q, bool(use_pallas))
+    components; ``Q`` is the shared (dq, dq) dynamics noise covariance."""
+    impl = bank_impl(Fx.shape[-1], Fq.shape[-1], dtype=P.dtype)
+    if impl == "xla":
+        return _predict_xla(Fx, P, Fq, Q)
+    return _bank_predict_cov(Fx, P, Fq, Q, impl)
 
 
 # ---------------------------------------------------------------------------
-# Bank-level EKF primitives, signature-parallel to vmapping ops/ekf.py —
-# the GSF/AGSF filters swap these in on TPU (inference.py).
+# Bank-level EKF primitives, signature-parallel to vmapping ops/ekf.py
 # ---------------------------------------------------------------------------
 
-def bank_ekf_predict(ms, Ps, f, F_x, F_q, Q, q0, u, use_pallas=None):
-    """Bank EKF predict: like ``vmap(ekf_predict)`` but with the covariance
-    propagation fused into one kernel. Returns ``(mu_pred, Sigma_pred, Fx)``.
+def bank_ekf_predict(ms, Ps, f, F_x, F_q, Q, q0, u):
+    """Bank EKF predict: ``vmap(ekf_predict)`` with the covariance
+    propagation in one kernel. Returns ``(mu_pred, Sigma_pred, Fx)``.
 
     The Jacobians are evaluated as separate vmapped passes on purpose: a
-    combined-argument linearization (jax.linearize over concat(x, q)) was
-    measured SLOWER in-scan — it defeats XLA's loop-invariant hoisting of
-    constant Jacobians (e.g. linear dynamics), see BENCHLOG.md round 2.
+    combined linearization (jax.linearize over concat(x, q)) defeats XLA's
+    loop-invariant hoisting of constant Jacobians (e.g. linear dynamics).
     """
     Fx = jax.vmap(lambda m: F_x(m, q0, u))(ms)
     Fq = jax.vmap(lambda m: F_q(m, q0, u))(ms)
     mu = jax.vmap(lambda m: f(m, q0, u))(ms)
-    Sigma = bank_predict_cov(Fx, Ps, Fq, Q, use_pallas)
-    return mu, Sigma, Fx
+    return mu, bank_predict_cov(Fx, Ps, Fq, Q), Fx
 
 
 def bank_ekf_condition_on_iterated(
-    ms, Ps, h, H_x, H_r, R, r0, u, y, num_iter=1, jitter=0.0, use_pallas=None,
+    ms, Ps, h, H_x, H_r, R, r0, u, y, num_iter=1, jitter=0.0,
     residual_fn=None,
 ):
-    """Bank (iterated) EKF measurement update: like
-    ``vmap(ekf_condition_on_iterated)`` with the linear algebra fused into
-    one kernel per iteration. Returns an
-    :class:`~bayesianfiltering_tpu.ops.ekf.EKFUpdate` of banked arrays.
-    """
-    from bayesianfiltering_tpu.ops.ekf import (
-        EKFUpdate,
-        _degenerate_update,
-        _residual,
-        _static_num_iter,
-    )
-
+    """Bank (iterated) EKF measurement update: ``vmap(ekf_condition_on_
+    iterated)`` with the linear algebra in one kernel per iteration.
+    Returns an :class:`~bayesianfiltering_tpu.ops.ekf.EKFUpdate` of banked
+    arrays."""
     y = jnp.atleast_1d(y)
     num_iter = _static_num_iter(num_iter)
     if num_iter <= 0:
@@ -471,22 +393,22 @@ def bank_ekf_condition_on_iterated(
     out = None
     for it in range(num_iter):
         Hx = jnp.reshape(vH(lin), (ms.shape[0], -1, ms.shape[-1]))
-        Hr = vHr(lin)
-        Hr = jnp.reshape(Hr, (ms.shape[0], Hx.shape[1], -1))
+        Hr = jnp.reshape(vHr(lin), (ms.shape[0], Hx.shape[1], -1))
         yh = vh(lin)
         # IEKF innovation correction (ops/ekf.py:ekf_condition_on_iterated);
         # zero at the first iteration where lin == ms.
         yhat = yh if it == 0 else yh + jnp.einsum("mij,mj->mi", Hx, ms - lin)
         Rt = jnp.einsum("mij,jk,mlk->mil", Hr, R, Hr)
         innov = _residual(y[None, :], yhat, residual_fn)
-        ll, mean, cov, K = bank_chol_update(ms, Ps, Hx, Rt, innov, jitter,
-                                            use_pallas)
+        ll, mean, cov, K = bank_chol_update(ms, Ps, Hx, Rt, innov, jitter)
         lin = mean
         out = EKFUpdate(ll, mean, cov, Hx, K)
     return out
 
 
 __all__ = [
+    "MAX_DIM",
+    "bank_impl",
     "bank_chol_update",
     "bank_predict_cov",
     "bank_ekf_predict",

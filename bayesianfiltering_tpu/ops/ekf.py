@@ -8,9 +8,9 @@ Math parity with the reference primitives:
   ``Σ = P − K S Kᵀ``, ``μ = m + K (y − h(m, r₀, u))``
 * fused step — ref: gaussfiltax/inference.py:107-120
 
-TPU notes: the innovation solve goes through a Cholesky factorization
-(:func:`~bayesianfiltering_tpu.utils.linalg.psd_solve`) instead of the
-reference's LU-with-scalar-jitter; the same factor is reused for the
+Numerics: the innovation solve goes through a Cholesky factorization
+(:func:`~bayesianfiltering_tpu.utils.linalg.chol_and_inv_lower`) instead of
+the reference's LU-with-scalar-jitter; the same factor is reused for the
 observation log-likelihood, so one factorization serves gain + likelihood.
 All functions are rank-polymorphic over leading batch dimensions *of the
 Gaussian* when the callables are vmapped by the caller (the filters vmap
@@ -24,12 +24,7 @@ from typing import Callable, NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from bayesianfiltering_tpu.utils.linalg import (
-    chol_and_inv_lower,
-    fast_cholesky,
-    symmetrize,
-    tri_inv_lower,
-)
+from bayesianfiltering_tpu.utils.linalg import chol_and_inv_lower, symmetrize
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -77,18 +72,16 @@ _REL_JITTER = 1e-6
 def chol_update_precomputed(m, P, Hx, Rt, innov, jitter=0.0):
     """Joseph-form Cholesky measurement update on PRECOMPUTED linearizations.
 
-    The single shared implementation of the update math — the vmapped bank
-    path, the single-stream fused-kernel XLA reference/VJP
-    (ops/bank_update.py, ops/fused_ekf.py), and :func:`ekf_condition_on`
-    all route through this function, so the numerics cannot drift apart.
-    Returns ``(ll, mean, cov, gain)``.
+    The shared implementation of the update math: the bank kernel's XLA
+    reference and VJP (ops/bank_update.py) and the chunked update
+    (:func:`ekf_condition_on_chunked`) route through this function, and
+    :func:`_chol_update` is the same formula on a raw linearization, so the
+    numerics cannot drift apart. Returns ``(ll, mean, cov, gain)``.
     """
     dy = innov.shape[-1]
     S = symmetrize(Rt + Hx @ P @ Hx.T)
     floor = _REL_JITTER * jnp.max(jnp.abs(jnp.diagonal(S, axis1=-2, axis2=-1)))
     S = S + (jitter + floor) * jnp.eye(S.shape[-1], dtype=S.dtype)
-    # Combined factorization: chol + tri_inv as separate recursions invert
-    # every diagonal base block twice (utils/linalg.py::chol_and_inv_lower).
     chol, linv = chol_and_inv_lower(S)
     hp = Hx @ P
     K = (linv.T @ (linv @ hp)).T
@@ -118,9 +111,6 @@ def _chol_update(P, Hx, Hr, R, m, y, yhat, jitter: float, residual_fn=None):
     S = symmetrize(Rt + Hx @ P @ Hx.T)
     floor = _REL_JITTER * jnp.max(jnp.abs(jnp.diagonal(S, axis1=-2, axis2=-1)))
     S = S + (jitter + floor) * jnp.eye(S.shape[-1], dtype=S.dtype)
-    # Blocked (matmul-based) combined Cholesky + triangular inverse: TPU's
-    # native cholesky/triangular_solve lowerings are sequential loops and
-    # dominate the whole filter step (BENCHLOG.md).
     chol, linv = chol_and_inv_lower(S)
     hp = Hx @ P
     K = (linv.T @ (linv @ hp)).T
@@ -195,8 +185,8 @@ def ekf_condition_on_iterated(
         return _degenerate_update(m, P, y)
 
     # Statically unrolled: num_iter is a Python int in every caller, and a
-    # lax.fori_loop here compiles to a while-loop INSIDE the filters' scan —
-    # measured catastrophic on the single-stream path (BENCHLOG round 2).
+    # lax.fori_loop here would compile to a while-loop inside the filters'
+    # scan.
     lin_point = m
     out = None
     for it in range(num_iter):
@@ -211,6 +201,63 @@ def ekf_condition_on_iterated(
                                         residual_fn)
         lin_point = mean
         out = EKFUpdate(ll, mean, cov, Hx, K)
+    return out
+
+
+def ekf_condition_on_chunked(
+    m, P, h, H_x, H_r, R, r0, u, y, chunk=128, num_iter=1, jitter=0.0,
+    residual_fn=None,
+) -> EKFUpdate:
+    """Sequential (chunked) EKF measurement update for large emission dims.
+
+    Processes the emission vector in ``chunk``-sized blocks, one Kalman
+    update per block — the classical "sequential processing" form. EXACT
+    (same posterior and total log-likelihood as the joint update) whenever
+    the effective emission noise ``Rt = H_r R H_rᵀ`` is block-diagonal
+    w.r.t. the chunking (e.g. diagonal sensor noise, the BASELINE Lorenz-96
+    config); an approximation otherwise — cross-chunk noise correlations
+    are dropped. Each block factorizes a ``(chunk, chunk)`` innovation
+    covariance instead of one ``(dy, dy)``.
+
+    Chunk boundaries are static; per-chunk innovations are corrected for
+    the mean motion of earlier chunks (``inn_c −= H_c (m_cur − m_lin)``),
+    so within one linearization the recursion is algebraically the joint
+    update.
+
+    Returns an :class:`EKFUpdate`; the ``gain`` field holds the per-chunk
+    gains concatenated to (dx, dy) (diagnostic — the joint gain is not
+    materialized).
+    """
+    y = jnp.atleast_1d(y)
+    dy = y.shape[-1]
+    num_iter = _static_num_iter(num_iter)
+    if num_iter <= 0:
+        return _degenerate_update(m, P, y)
+    chunk = int(chunk)
+    bounds = [(lo, min(lo + chunk, dy)) for lo in range(0, dy, chunk)]
+    lin = m
+    out = None
+    for it in range(num_iter):
+        Hx = jnp.reshape(H_x(lin, r0, u), (-1, m.shape[-1]))
+        Hr = jnp.reshape(H_r(lin, r0, u), (Hx.shape[0], -1))
+        yhat = jnp.atleast_1d(h(lin, r0, u))
+        if it > 0:
+            yhat = yhat + Hx @ (m - lin)
+        Rt = Hr @ R @ Hr.T
+        innov_full = _residual(y, yhat, residual_fn)
+        ll_total = jnp.zeros(())
+        cur_m, cur_P = m, P
+        gains = []
+        for lo, hi in bounds:
+            Hc = Hx[lo:hi]
+            inn = innov_full[lo:hi] - Hc @ (cur_m - m)
+            ll, cur_m, cur_P, K = chol_update_precomputed(
+                cur_m, cur_P, Hc, Rt[lo:hi, lo:hi], inn, jitter)
+            ll_total = ll_total + ll
+            gains.append(K)
+        lin = cur_m
+        out = EKFUpdate(ll_total, cur_m, cur_P, Hx,
+                        jnp.concatenate(gains, axis=-1))
     return out
 
 
@@ -279,8 +326,8 @@ def ekf_step(
 
 def _static_num_iter(num_iter) -> int:
     """num_iter must be a static Python int: the iteration loop is unrolled
-    at trace time (a lax loop here compiles to a while-loop inside the
-    filters' scan — measured catastrophic, BENCHLOG round 2)."""
+    at trace time (a lax loop here would compile to a while-loop inside the
+    filters' scan)."""
     try:
         return int(num_iter)
     except TypeError as e:
@@ -307,6 +354,7 @@ __all__ = [
     "ekf_predict",
     "ekf_condition_on",
     "ekf_condition_on_iterated",
+    "ekf_condition_on_chunked",
     "ekf_condition_on_ref",
     "ekf_step",
 ]

@@ -16,9 +16,9 @@ relinearizes with unscented statistical linear regression about the current
 Technique: Yaghoobi, Corenflos, Hassan, Särkkä — "Parallel Iterated
 Extended and Sigma-Point Kalman Smoothers" (arXiv 2102.00514, PAPERS.md).
 No counterpart exists in the reference repo (it ships no smoother at all
-for its nonlinear models); this is the TPU-native long-sequence story for
-NONLINEAR models (SURVEY.md §5.7): every iteration is an associative scan —
-O(log T) combine depth of batched matmuls on the MXU — instead of a
+for its nonlinear models); this is the long-sequence story for NONLINEAR
+models (SURVEY.md §5.7): every iteration is an associative scan —
+O(log T) combine depth of batched matmuls — instead of a
 T-step sequential recursion, and the iteration loop itself is a
 ``lax.scan`` with O(1) carry (the nominal trajectory).
 

@@ -1,24 +1,23 @@
-"""Steady-state Kalman filtering/smoothing: the time recursion as MXU matmuls.
+"""Steady-state Kalman filtering/smoothing: the time recursion as matmuls.
 
 For a time-invariant linear-Gaussian SSM the Kalman gain converges to its
 Riccati fixed point; once the gain is frozen, the filtered-mean recursion
 ``m_t = A m_{t-1} + u_t`` (``A = (I - K∞H) F`` constant) is an affine scan
 with a CONSTANT matrix. That collapses the O(log T)-depth associative scan
 of :mod:`bayesianfiltering_tpu.ops.associative` — whose per-level combines
-are per-timestep 5-tuple lattice algebra on the VPU — into log2(T) plain
+are per-timestep 5-tuple small-matrix algebra — into log2(T) plain
 ``(T, dx) @ (dx, dx)`` matmuls (Kogge–Stone doubling: level k adds
-``A^{2^k} v[t - 2^k]``), which the MXU eats whole. The first ``head`` steps
+``A^{2^k} v[t - 2^k]``). The first ``head`` steps
 run the exact time-varying filter so the transient is exact; past the head
 the frozen gain differs from the exact one only by the (exponentially
 decaying) Riccati residual.
 
 This is an approximation the reference has no analog of (its only linear
 handling is running linear models through the EKF, e.g.
-ref: docs/experiments/adaptive_experiment.py:60-65); it is the TPU answer
-for "filter a million-step stationary stream": measured on v5e at T=1M,
-dx=4/dy=2 it runs ~3x faster than the fused-kernel associative filter
-(BENCHLOG round 3) while agreeing with the exact filter to f32 rounding
-once the gain has converged.
+ref: docs/experiments/adaptive_experiment.py:60-65); it answers "filter a
+million-step stationary stream" while agreeing with the exact filter to
+f32 rounding once the gain has converged. Its speed against the
+associative filter on the GPU is not measured.
 
 Use :func:`steady_state_gains` to inspect convergence (``rel_delta`` is
 the last Riccati-iteration relative change; it should be ~f32 eps — if it
@@ -138,7 +137,7 @@ def steady_state_kalman_filter(params: ParamsLGSSM, emissions: jax.Array,
     The first ``head`` steps run :func:`ops.linear.kalman_filter` exactly
     (time-varying gains, exact covariances and loglik); from step ``head``
     on, the gain is frozen at the ``num_iters``-step Riccati fixed point
-    and the mean recursion is evaluated in log2(T) MXU matmuls
+    and the mean recursion is evaluated in log2(T) matmuls
     (:func:`_affine_scan_constant`). Covariances past the head are the
     (broadcast) steady-state matrices. Exact for t < head; past the head
     the means/loglik differ from the exact filter by the gain's remaining

@@ -14,9 +14,9 @@ a scalar — rather than the intended outer product (its non-additive sibling
 uses ``einsum('i,j->ij', ...)`` at :173). We implement the intended outer
 product everywhere.
 
-TPU notes: sigma-point propagation is a single ``vmap`` (2n or 2(n+nq) rows,
+Layout: sigma-point propagation is a single ``vmap`` (2n or 2(n+nq) rows,
 batched again over mixture components by the callers); covariance
-accumulation is one ``einsum`` contraction that XLA maps onto the MXU.
+accumulation is one ``einsum`` contraction.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ traffic per step is the weight normalization —
     shift = pmax(max local ll·w)          (one scalar)
     total = psum(Σ local unnormalized w)  (one scalar)
 
-a few bytes over ICI per step, so scaling is limited only by the per-device
-bank size. Useful when M is large enough that one chip's HBM or FLOPs bound
+a few bytes over the interconnect per step, so scaling is limited only by
+the per-device bank size. Useful when M is large enough that one card's
+memory or FLOPs bound
 the bank (e.g. M ≥ 10⁵ components at high state dimension).
 
 The math is identical to :func:`bayesianfiltering_tpu.inference.
@@ -30,10 +31,7 @@ import jax.random as jr
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 promotes shard_map to the top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 from bayesianfiltering_tpu.config import with_matmul_precision
 from bayesianfiltering_tpu.models.params import ParamsNLSSM
@@ -41,8 +39,7 @@ from bayesianfiltering_tpu.ops import bank_update as _bank
 from bayesianfiltering_tpu.types import PRNGKey
 
 # jit cache: re-creating + jitting the shard_mapped closure per call would
-# recompile every invocation (the round-1 batched_filter pathology,
-# VERDICT weak #9). Keyed on everything non-array that shapes the trace;
+# recompile every invocation. Keyed on everything non-array that shapes the trace;
 # bounded like parallel/batch.py's lru_cache so shape sweeps can't grow the
 # executable set without limit.
 _JIT_CACHE_MAX = 128
@@ -109,7 +106,7 @@ def sharded_gaussian_sum_filter(
                 residual_fn=getattr(params, "emission_residual", None),
             )
             # Log-space reweighting with global collectives: exactly
-            # inference._reweight, two scalars over ICI.
+            # inference._reweight, two scalars across devices.
             logw = jnp.log(weights) + upd.log_likelihood
             shift = lax.pmax(jnp.max(logw), axis_name)
             unnorm = jnp.exp(logw - shift)
@@ -201,7 +198,7 @@ def sharded_agsf(
     with each device carrying M/n_dev components and branching them to
     M·N·L/n_dev locally. Cross-device traffic per step:
 
-    * weight normalization — two scalars (``pmax`` + ``psum``) over ICI;
+    * weight normalization — two scalars (``pmax`` + ``psum``) across devices;
     * the M→M reduction — one ``all_gather`` of the updated bank
       (M·N·L·(dx²+dx+1) floats; a few KB at AGSF bank sizes), after which
       every device runs the identical deterministic reduction and keeps
@@ -329,7 +326,7 @@ def sharded_agsf(
                     in_axes=(0, 0) + (None,) * 8,
                 )(um, uP, h, R, u, y, uparams, r0, num_iter, residual_fn)
 
-            # -- global log-space reweight (two scalars over ICI) ------
+            # -- global log-space reweight (two scalars across devices) ------
             logw = jnp.log(uw) + lls
             shift = lax.pmax(jnp.max(logw), axis_name)
             unnorm = jnp.exp(logw - shift)

@@ -5,7 +5,7 @@ bank is sharded over a mesh axis with ``shard_map``; the only cross-device
 traffic is:
 
 * ``psum`` / ``pmax`` scalars for global weight normalization and ESS
-  (a few bytes per step over ICI), and
+  (a few bytes per step across devices), and
 * resampling, in one of two modes:
     - ``"local"`` (default): ESS-adaptive resampling *within* each shard,
       preserving each shard's weight mass exactly (per-shard systematic
@@ -28,10 +28,7 @@ import jax.random as jr
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 promotes shard_map to the top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 from bayesianfiltering_tpu.distributions import mvn_sample
 from bayesianfiltering_tpu.models.params import ParamsBPF

@@ -4,14 +4,13 @@ The reference's filters are single-shot scans holding all outputs in memory
 (SURVEY.md §5.4: no checkpoint/resume anywhere). Here every filter family
 exposes an explicit ``(init, step)`` pair over a tiny carry pytree, so long
 runs can be processed in chunks, the carry checkpointed between chunks (the
-carry is a few KB — orbax-ready), and output storage bounded by the chunk
-length.
+carry is a few KB), and output storage bounded by the chunk length.
 
     stepper = make_gsf_stepper(params, num_components=8)
     state = stepper.init(jr.PRNGKey(0))
     for chunk_emissions, chunk_inputs in stream:
         state, outputs = stepper.run_chunk(state, chunk_emissions, chunk_inputs)
-        save_checkpoint(state)   # e.g. orbax; see save/restore helpers
+        save_state(path, state)
 
 The chunk runner is one ``lax.scan`` (jit it once; all chunks reuse the
 compilation if equally sized).
@@ -23,6 +22,7 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 import jax.random as jr
+import numpy as np
 from jax import lax, vmap
 
 from bayesianfiltering_tpu.config import with_matmul_precision
@@ -35,7 +35,6 @@ from bayesianfiltering_tpu.inference import (
 )
 from bayesianfiltering_tpu.models.params import ParamsBPF, ParamsNLSSM
 from bayesianfiltering_tpu.ops import ekf as _ekf
-from bayesianfiltering_tpu.ops import fused_ekf as _fused
 from bayesianfiltering_tpu.types import PRNGKey
 from bayesianfiltering_tpu.utils.resampling import (
     effective_sample_size,
@@ -100,14 +99,14 @@ def make_ekf_stepper(params: ParamsNLSSM, num_iter: int = 1,
 
         def do_predict(args):
             m, P = args
-            m2, P2, _ = _fused.fused_ekf_predict(m, P, f, F_x, F_q, Q, q0, u)
+            m2, P2, _ = _ekf.ekf_predict(m, P, f, F_x, F_q, Q, q0, u)
             return m2, P2
 
         m_pred, P_pred = lax.cond(t > 0, do_predict, lambda a: a,
                                   (state.mean, state.cov))
-        upd = _fused.fused_ekf_condition_on_iterated(
+        upd = _ekf.ekf_condition_on_iterated(
             m_pred, P_pred, h, H_x, H_r, R, r0, u, y, num_iter, jitter,
-            residual_fn=residual_fn,
+            residual_fn,
         )
         new_state = EKFState(upd.mean, upd.cov,
                              state.marginal_loglik + upd.log_likelihood)
@@ -222,39 +221,30 @@ def make_bpf_stepper(params: ParamsBPF, num_particles: int,
 
 
 # ---------------------------------------------------------------------------
-# Carry checkpointing (orbax if available, np.savez fallback)
+# Carry checkpointing
 # ---------------------------------------------------------------------------
 
+def _npz_path(path) -> str:
+    path = str(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
 def save_state(path: str, state) -> None:
-    """Checkpoint a filter carry pytree to ``path``."""
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(path, state, force=True)
-        ckptr.wait_until_finished()
-    except ImportError:  # pragma: no cover
-        import numpy as np
-
-        leaves, _ = jax.tree_util.tree_flatten(state)
-        np.savez(path, *[np.asarray(l) for l in leaves])
+    """Checkpoint a filter carry pytree to ``path`` (an ``.npz`` archive;
+    the suffix is added if missing)."""
+    leaves = jax.tree_util.tree_leaves(state)
+    np.savez(_npz_path(path),
+             **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
 
 
 def restore_state(path: str, like):
     """Restore a carry checkpointed by :func:`save_state`; ``like`` is a
     template pytree with matching structure/shapes/dtypes."""
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        return ckptr.restore(path, like)
-    except ImportError:  # pragma: no cover
-        import numpy as np
-
-        data = np.load(path if str(path).endswith(".npz") else path + ".npz")
-        leaves = [data[k] for k in data.files]
-        treedef = jax.tree_util.tree_structure(like)
-        return jax.tree_util.tree_unflatten(treedef, leaves)
+    treedef = jax.tree_util.tree_structure(like)
+    with np.load(_npz_path(path)) as data:
+        leaves = [jnp.asarray(data[f"leaf_{i}"])
+                  for i in range(treedef.num_leaves)]
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 __all__ = [

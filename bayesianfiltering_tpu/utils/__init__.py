@@ -13,9 +13,7 @@ from bayesianfiltering_tpu.utils.linalg import (
     sqrtm_psd_eigh,
     sqrtm_psd_ns,
     fast_cholesky,
-    cholesky_blocked,
     tri_inv_lower,
-    tri_solve_lower,
     cholesky_guarded,
     sandwich,
     matrix_projection,
@@ -65,8 +63,7 @@ from bayesianfiltering_tpu.utils.angles import (
 __all__ = [
     # linalg
     "symmetrize", "psd_solve", "project_to_psd", "sqrtm_psd", "sqrtm_psd_eigh",
-    "sqrtm_psd_ns", "fast_cholesky", "cholesky_blocked", "tri_inv_lower",
-    "tri_solve_lower", "cholesky_guarded", "sandwich", "matrix_projection",
+    "sqrtm_psd_ns", "fast_cholesky", "tri_inv_lower", "cholesky_guarded", "sandwich", "matrix_projection",
     # metrics
     "mse", "rmse", "collapse", "normal_KL_div", "normal_kl", "W_distance",
     "gaussian_logpdf", "gm", "loss", "dec_to_base",

@@ -1,19 +1,18 @@
 """Dense linear-algebra primitives shared by all filters.
 
-TPU-first equivalents of the reference numerics:
+Equivalents of the reference numerics:
 
 * ``psd_solve`` — ref: gaussfiltax/utils.py:256-259. The reference does an LU
   solve after adding the scalar ``1e-6`` to *every entry* of ``A`` (not the
-  diagonal). We solve via Cholesky (half the FLOPs, PSD-respecting, maps to
-  the MXU through batched triangular solves) with an optional diagonal
-  jitter; the reference's scalar-add behavior is available as
-  ``compat_scalar=True`` for golden-parity experiments.
+  diagonal). We solve via Cholesky (half the FLOPs, PSD-respecting) with an
+  optional diagonal jitter; the reference's scalar-add behavior is available
+  as ``compat_scalar=True`` for golden-parity experiments.
 * ``project_to_psd`` — ref: gaussfiltax/utils.py:89-95 (eigh + clamp).
 * ``sqrtm_psd`` — ref: gaussfiltax/utils.py:247-254 uses
-  ``scipy.linalg.sqrtm`` (Schur-based, no TPU kernel, returns complex). For
-  symmetric PSD input the eigh-based symmetric square root is the same
-  matrix, is differentiable, and batches under ``vmap``.
-* ``cholesky_guarded`` — Cholesky whose NaN columns (non-PSD input) are
+  ``scipy.linalg.sqrtm`` (Schur-based, returns complex). For symmetric PSD
+  input the symmetric square root is the same matrix, is differentiable,
+  and batches under ``vmap``.
+* ``cholesky_guarded`` — Cholesky whose failed factors (non-PSD input) are
   replaced by zeros, mirroring the NaN-guard semantics of
   ref: gaussfiltax/containers.py:83 at the sampling site.
 """
@@ -21,6 +20,20 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST
+# The PSD square root / projection table. Measured on an H100 80GB HBM3 at
+# a 700 W power limit (experiments/chol_crossover.py, µs per step of a
+# chained scan): batched B=512, eigh 34 / 57 µs vs Newton–Schulz 71 / 157
+# at n = 4 / 8; Newton–Schulz 219 vs 251 at n=32 and 539 vs 1140 at n=64;
+# unbatched 371 vs 685 at n=64 and 231 vs 1422 at n=128. Above 128 eigh
+# (not measured on the card). CPU takes the same table.
+_NS_MIN, _NS_MAX = 9, 128
+
+
+def sqrt_impl(n: int) -> str:
+    """``"newton_schulz"`` for 9 ≤ n ≤ 128, ``"eigh"`` otherwise."""
+    return "newton_schulz" if _NS_MIN <= n <= _NS_MAX else "eigh"
 
 
 def symmetrize(a: jax.Array) -> jax.Array:
@@ -76,11 +89,9 @@ def project_to_psd_ns(delta: jax.Array, num_iters: int = 16) -> jax.Array:
     """PSD-cone projection via the polar form — matmuls only.
 
     ``proj(A) = (A + (A²)^{1/2}) / 2`` equals the eigenvalue clamp of
-    :func:`project_to_psd` for symmetric ``A``, but runs entirely on the MXU
-    through the Newton–Schulz square root. Use inside ``lax.scan`` compute
-    paths: ``jnp.linalg.eigh`` is loop-lowered on TPU and hard-faults the
-    device at n≥512 inside scans (BENCHLOG.md). Eigenvalues within ~1e-6 of
-    the spectral radius of zero converge partially — clamp error at the
+    :func:`project_to_psd` for symmetric ``A``, but is batched matmuls
+    only, through the Newton–Schulz square root. Eigenvalues within ~1e-6
+    of the spectral radius of zero converge partially — clamp error at the
     jitter scale.
     """
     a = symmetrize(delta)
@@ -93,9 +104,9 @@ def project_to_psd_ns(delta: jax.Array, num_iters: int = 16) -> jax.Array:
 
 
 def project_to_psd_fast(delta: jax.Array) -> jax.Array:
-    """PSD projection dispatcher: Newton–Schulz polar form (matmul-only) for
-    the small matrices filters live on, eigh beyond ``_BLOCK_MAX``."""
-    if delta.shape[-1] <= _BLOCK_MAX:
+    """PSD projection by :func:`sqrt_impl`: the Newton–Schulz polar form
+    (matmul-only) or the eigh clamp."""
+    if sqrt_impl(delta.shape[-1]) == "newton_schulz":
         return project_to_psd_ns(delta)
     return project_to_psd(delta)
 
@@ -104,9 +115,7 @@ def sqrtm_psd_eigh(p: jax.Array) -> jax.Array:
     """Symmetric PSD matrix square root via eigendecomposition.
 
     Exact stand-in for ``jnp.real(scipy.linalg.sqrtm(P))``
-    (ref: gaussfiltax/utils.py:250) on PSD input, but eigh is loop-lowered
-    on TPU (and hard-faults at n≥512 inside scans in this environment) —
-    use :func:`sqrtm_psd` in compute paths.
+    (ref: gaussfiltax/utils.py:250) on PSD input.
     """
     evals, evecs = jnp.linalg.eigh(symmetrize(p))
     root = jnp.sqrt(jnp.maximum(evals, 0.0))
@@ -119,10 +128,7 @@ def sqrtm_psd_ns(p: jax.Array, num_iters: int = 14,
 
     Trace-normalized coupled iteration
     ``Y ← Y(3I − ZY)/2, Z ← (3I − ZY)Z/2`` (quadratic convergence for
-    spectral radius < 1). All work is batched matmuls, so a bank of M small
-    square roots inside a scan costs MXU time instead of TPU eigh's
-    sequential loop (the UKF-family filters were 10-100× slower through
-    eigh, BENCHLOG.md). Eigendirections with eigenvalue ratio ≲1e-6 of the
+    spectral radius < 1). All work is batched matmuls. Eigendirections with eigenvalue ratio ≲1e-6 of the
     trace converge partially — an absolute covariance error at the jitter
     scale, irrelevant for sigma-point spreads.
     """
@@ -149,15 +155,15 @@ def sqrtm_psd_ns(p: jax.Array, num_iters: int = 14,
 
 
 def sqrtm_psd(p: jax.Array) -> jax.Array:
-    """PSD matrix square root — Newton–Schulz (matmul-only) for the small
-    matrices filters live on, eigh beyond ``_BLOCK_MAX``."""
-    if p.shape[-1] <= _BLOCK_MAX:
+    """PSD matrix square root by :func:`sqrt_impl`: Newton–Schulz
+    (matmul-only) or eigh."""
+    if sqrt_impl(p.shape[-1]) == "newton_schulz":
         return sqrtm_psd_ns(p)
     return sqrtm_psd_eigh(p)
 
 
 def cholesky_guarded(p: jax.Array) -> jax.Array:
-    """Cholesky factor with NaNs (non-PSD input) replaced by zeros.
+    """Cholesky factor with failed factors (non-PSD input) replaced by zeros.
 
     Sampling with a zero factor collapses the perturbation to the mean,
     which is exactly the recovery behavior of the reference NaN guard
@@ -166,101 +172,35 @@ def cholesky_guarded(p: jax.Array) -> jax.Array:
     single guarded factor serves any number of samples.
     """
     chol = fast_cholesky(p)
-    # All-or-nothing per matrix: the blocked/unrolled Cholesky leaves the
-    # columns before the failure point finite (LAPACK NaNs the whole factor),
-    # and a PARTIAL factor of an indefinite matrix can carry huge entries —
-    # zero the entire factor so sampling collapses cleanly onto the mean.
-    bad = jnp.any(jnp.isnan(chol), axis=(-2, -1), keepdims=True)
+    # All-or-nothing per matrix, on ANY non-finite entry: the unrolled
+    # lattice leaves the columns before the failure point finite, and a
+    # PARTIAL factor of an indefinite matrix can carry huge or infinite
+    # entries — zero the entire factor so sampling collapses onto the mean.
+    bad = jnp.any(~jnp.isfinite(chol), axis=(-2, -1), keepdims=True)
     return jnp.where(bad, 0.0, chol)
 
 
 # ---------------------------------------------------------------------------
-# Matmul-based batched Cholesky / triangular inverse.
+# Cholesky and triangular inverse: the one factorization table.
 #
-# XLA lowers TPU `cholesky` and `triangular_solve` to sequential loops: a
-# batched (256, 32, 32) Cholesky costs ~1 ms per call inside a scan on v5e —
-# it IS the EKF step cost (see BENCHLOG.md). These blocked recursions express
-# the same factorizations as log-depth batched matmuls (MXU) plus an
-# unrolled elementwise base case, and are the default for the small PSD
-# matrices Kalman-type filters live on.
+# Measured on an H100 80GB HBM3 at a 400 W power limit
+# (experiments/chol_crossover.py, chol + L⁻¹ per step of a chained scan,
+# B=512 batched): the unrolled Cholesky–Crout lattice below takes 11 µs at
+# n=4 and 27 µs at n=8 against 78 and 76 µs for the native factorization
+# (cuSOLVER); native wins from n=16 on (53 vs 76 µs; 82 vs 162 µs at n=32;
+# 222 vs 431 µs at n=64) and compiles in ~1 s where the unrolled graph
+# takes 44 s at n=16. The column-vectorized and blocked-recursion forms
+# lost to one of the two at every n. CPU takes the same table (LAPACK).
 # ---------------------------------------------------------------------------
 
-_HI = jax.lax.Precision.HIGHEST
+# Largest n factorized by the unrolled lattice; native above.
+_UNROLLED_MAX = 8
 
 
-def _batch_tracer_cls():
-    """Resolve jax's vmap tracer class (isolated so tests can simulate the
-    internals moving and pin the fail-closed behavior of _is_vmapped)."""
-    from jax._src.interpreters import batching
-
-    return batching.BatchTracer
-
-
-def _is_vmapped(*xs) -> bool:
-    """True when any input is a vmap BatchTracer at this trace point.
-
-    Used by the factorization dispatchers below and by the Pallas kernel
-    gates (ops/fused_ekf.py): a 2-D array inside ``vmap`` is REALLY a
-    batched bank, and batched work wants the blocked matmul recursions /
-    must not enter a pallas_call (sequential grid). Fails CLOSED (reports
-    vmapped) if the jax-internal import ever moves — the batched-style
-    path is always correct, merely slower single-stream.
-    """
-    try:
-        tracer_cls = _batch_tracer_cls()
-    except Exception:
-        return True
-    return any(isinstance(x, tracer_cls) for x in xs)
-
-
-def _effectively_unbatched(x: jax.Array) -> bool:
-    """A CONCRETE single (n, n) matrix — a parameter-style constant, not
-    anything flowing through a traced computation.
-
-    The blocked recursions pay off BATCHED (log-depth batched matmuls vs
-    TPU's loop-lowered native linalg, ~1 ms per (256,32,32) factorization);
-    UNBATCHED above the unrolled base they are strictly worse than the
-    native lowering — minutes of compile and ~600× the runtime (round-2
-    toolchain, BENCHLOG.md) — e.g. the one-off chol(Q) of a model constant
-    in mvn_sample at dx=64.
-
-    ONLY concrete (non-tracer) values qualify: a 2-D tracer inside a scan
-    body is usually a vmapped bank member whose batch axis appears after
-    body tracing (vmap batches the scan primitive), and dispatching it to
-    the native lowering re-creates the ~1 ms/step in-scan factorization
-    this module exists to avoid (measured: bench.py 757k -> 216k when this
-    predicate briefly trusted `ndim`+BatchTracer checks, round 3).
-    """
-    return (
-        getattr(x, "ndim", 0) == 2
-        and not isinstance(x, jax.core.Tracer)
-    )
-# Unrolled-base size for the blocked recursions. Measured on v5e (EKF dx=64
-# batched headline): base 4 → 581k, 8 → 655k, 16 → 696k, 24 → 701k,
-# 32 → 358k timestep-equiv/s with a 441 s compile (the n² unrolled lattice
-# explodes). 16 balances speed and compile time.
-_BLOCK_BASE = 16
-# Above _BLOCK_MAX the native (LAPACK-style custom-call) lowering wins.
-# Round 2 lowered this 256 -> 128: the round-2 toolchain compiles UNBATCHED
-# blocked recursions at n in [129, 256] for minutes (the UKF dy=256 gain on
-# the BASELINE dx=512 config hit it), while no real workload factorizes
-# BATCHED matrices that size (banks are d <= 32; larger ns appear unbatched).
-_BLOCK_MAX = 128
-# At or below this size the scalar lattice has comparable op count to the
-# column-vectorized forms and avoids tiny-contraction einsums; above it the
-# columns win outright (6.1× at n=32 on the (512,·,·) EKF headline bank).
-_COLS_MIN = 4
-# Crossover between the column-vectorized forms and the blocked matmul
-# recursion. _chol_cols re-stacks the accumulated columns at every step
-# (jnp.stack of j columns at step j), so its HBM traffic grows as
-# O(B·n³) against the recursion's O(B·n²·log n) — measured on v5e at
-# B=512 (experiments/chol_crossover.py, BENCHLOG round 5, chol+tri_inv
-# per scan step): n=32 cols 204 µs vs blocked 1014 µs; n=64 cols 1674 µs
-# vs blocked 798 µs; n=128 cols 16.5 ms(!) vs blocked 1.48 ms. Round 3
-# dispatched ALL batched n in (4, 128] to the columns, which silently
-# cost the batched UKF (two n=64 sigma factorizations per step) ~2.5× —
-# the round-5 re-measure caught it (164k vs the published 408-416k).
-_COLS_MAX = 32
+def factor_impl(n: int) -> str:
+    """``"unrolled"`` (elementwise Cholesky–Crout lattice, fused by XLA)
+    for n ≤ 8, ``"native"`` (cuSOLVER on GPU, LAPACK on CPU) above."""
+    return "unrolled" if n <= _UNROLLED_MAX else "native"
 
 
 def _chol_unrolled(S: jax.Array) -> jax.Array:
@@ -310,237 +250,32 @@ def _tri_inv_unrolled(L: jax.Array) -> jax.Array:
     return jnp.stack(rows, axis=-2)
 
 
-def _chol_cols(S: jax.Array) -> jax.Array:
-    """Column-vectorized Cholesky–Banachiewicz: n unrolled column steps,
-    each ONE batched matvec (``L[:, :j] @ L[j, :j]``) plus an rsqrt scale.
-
-    This is the default batched XLA path: the scalar-lattice
-    :func:`_chol_unrolled` emits ~n³/6 tiny (batch,)-shaped ops whose
-    fused-kernel launches dominate the wall (measured on the EKF dx=64
-    headline: 907 µs/step for the (512,32,32) chol+inv vs 149 µs for this
-    form + :func:`_solve_fwd_unrolled` — BENCHLOG round 3). The lattice
-    version remains the in-kernel base for Pallas paths, where every
-    statement is a VMEM op and Mosaic cannot lower stacked matvecs.
-    """
-    n = S.shape[-1]
-    idx = jnp.arange(n)
-    cols = []
-    for j in range(n):
-        v = S[..., :, j]
-        if j:
-            Lb = jnp.stack(cols, axis=-1)                    # (..., n, j)
-            v = v - jnp.einsum("...ik,...k->...i", Lb, Lb[..., j, :],
-                               precision=_HI)
-        d = jax.lax.rsqrt(v[..., j])
-        cols.append(v * d[..., None] * (idx >= j))
-    return jnp.stack(cols, axis=-1)
-
-
-def _solve_fwd_unrolled(L: jax.Array, b: jax.Array) -> jax.Array:
-    """Forward substitution ``L X = b`` for (..., n, m) RHS: n unrolled row
-    steps, each one batched matvec over the already-solved rows (the
-    column-vectorized companion of :func:`_chol_cols`)."""
-    n = L.shape[-1]
-    rows = []
-    for i in range(n):
-        r = b[..., i, :]
-        if i:
-            X = jnp.stack(rows, axis=-2)                     # (..., i, m)
-            r = r - jnp.einsum("...k,...km->...m", L[..., i, :i], X,
-                               precision=_HI)
-        rows.append(r / L[..., i, i][..., None])
-    return jnp.stack(rows, axis=-2)
-
-
-def _tri_inv_cols(L: jax.Array) -> jax.Array:
+def _tri_inv_native(L: jax.Array) -> jax.Array:
     eye = jnp.broadcast_to(jnp.eye(L.shape[-1], dtype=L.dtype), L.shape)
-    return _solve_fwd_unrolled(L, eye)
-
-
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
-def tri_inv_lower(L: jax.Array) -> jax.Array:
-    """Inverse of a lower-triangular matrix via blocked recursion
-    (batched matmuls): inv([[A,0],[C,D]]) = [[A⁻¹,0],[−D⁻¹ C A⁻¹, D⁻¹]].
-    Above ``_BLOCK_MAX`` — or genuinely unbatched above the unrolled base —
-    the native TriangularSolve lowering wins (same dispatch rationale as
-    :func:`fast_cholesky`)."""
-    n = L.shape[-1]
-    if n > _BLOCK_MAX or (n > _BLOCK_BASE and _effectively_unbatched(L)):
-        eye = jnp.broadcast_to(jnp.eye(n, dtype=L.dtype), L.shape)
-        return jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-    if n <= _COLS_MIN:
-        return _tri_inv_unrolled(L)
-    if n <= _COLS_MAX:
-        # Batched XLA path: row-vectorized substitution — n chunky matvec
-        # ops instead of the lattice's ~n³/6 tiny ones (see _chol_cols).
-        return _tri_inv_cols(L)
-    # n in (_COLS_MAX, _BLOCK_MAX]: the blocked matmul recursion — the
-    # row-vectorized form's O(n³) re-stacking traffic loses here
-    # (see _COLS_MAX).
-    p = _next_pow2(n)
-    if p != n:
-        eye_pad = jnp.eye(p, dtype=L.dtype)
-        Lp = jnp.zeros(L.shape[:-2] + (p, p), L.dtype)
-        Lp = Lp.at[..., :n, :n].set(L).at[..., n:, n:].set(
-            eye_pad[n - p:, n - p:]
-        )
-        return tri_inv_lower(Lp)[..., :n, :n]
-    h = n // 2
-    A = L[..., :h, :h]
-    C = L[..., h:, :h]
-    D = L[..., h:, h:]
-    Ai = tri_inv_lower(A)
-    Di = tri_inv_lower(D)
-    ll = -jnp.matmul(Di, jnp.matmul(C, Ai, precision=_HI), precision=_HI)
-    top = jnp.concatenate(
-        [Ai, jnp.zeros(A.shape[:-2] + (h, n - h), L.dtype)], axis=-1
-    )
-    bot = jnp.concatenate([ll, Di], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-def cholesky_blocked(S: jax.Array) -> jax.Array:
-    """Lower Cholesky factor via blocked right-looking recursion
-    (batched matmuls):
-    chol([[A,Bᵀ],[B,C]]) = [[L_A,0],[B L_A⁻ᵀ, chol(C − L_B L_Bᵀ)]]."""
-    n = S.shape[-1]
-    if n <= _BLOCK_BASE:
-        return _chol_unrolled(S)
-    if n <= _COLS_MAX:
-        # within the columns' winning band (see _COLS_MAX) — taken by the
-        # recursion's halves (e.g. n=128 → 64 → 32). XLA-only: this
-        # function is never traced inside Pallas kernels (those use
-        # chol_and_inv_lower(force_blocked=True)).
-        return _chol_cols(S)
-    p = _next_pow2(n)
-    if p != n:
-        Sp = jnp.zeros(S.shape[:-2] + (p, p), S.dtype)
-        Sp = Sp.at[..., :n, :n].set(S)
-        Sp = Sp.at[..., n:, n:].set(jnp.eye(p - n, dtype=S.dtype))
-        return cholesky_blocked(Sp)[..., :n, :n]
-    h = n // 2
-    A = S[..., :h, :h]
-    B = S[..., h:, :h]
-    C = S[..., h:, h:]
-    LA = cholesky_blocked(A)
-    LAi = tri_inv_lower(LA)
-    LB = jnp.matmul(B, jnp.swapaxes(LAi, -1, -2), precision=_HI)
-    schur = C - jnp.matmul(LB, jnp.swapaxes(LB, -1, -2), precision=_HI)
-    LC = cholesky_blocked(symmetrize(schur))
-    top = jnp.concatenate(
-        [LA, jnp.zeros(A.shape[:-2] + (h, n - h), S.dtype)], axis=-1
-    )
-    bot = jnp.concatenate([LB, LC], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-def chol_and_inv_lower(S: jax.Array, base: int = None,
-                       force_blocked: bool = False):
-    """Fused ``(L, L⁻¹)`` for PSD ``S`` in one blocked recursion.
-
-    ``cholesky_blocked`` followed by ``tri_inv_lower`` re-inverts every
-    diagonal base block that the factorization already inverted for its
-    panels; this combined recursion computes each base-case Cholesky AND its
-    inverse exactly once and assembles ``L⁻¹`` from the identity
-    ``inv([[A,0],[B,C]]) = [[A⁻¹,0],[−C⁻¹ B A⁻¹, C⁻¹]]`` — ~40% fewer
-    elementwise statements than the two separate recursions, which matters
-    inside Pallas kernels where every statement is an op
-    (ops/fused_ekf.py).
-
-    ``force_blocked=True`` skips the ``_BLOCK_MAX`` native-lowering dispatch
-    and always uses the matmul recursion — required inside Pallas kernels,
-    where Mosaic cannot lower ``cholesky``/``triangular_solve`` at any size.
-    """
-    if base is None:
-        base = _BLOCK_BASE
-    n = S.shape[-1]
-    if not force_blocked and (
-        n > _BLOCK_MAX or (n > base and _effectively_unbatched(S))
-    ):
-        # Native lowering wins beyond the blocked regime AND for genuinely
-        # unbatched matrices, same dispatch as fast_cholesky/tri_inv_lower.
-        L = jnp.linalg.cholesky(S)
-        eye = jnp.broadcast_to(jnp.eye(n, dtype=L.dtype), L.shape)
-        return L, jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-    if not force_blocked and _COLS_MIN < n <= _COLS_MAX:
-        # Batched XLA path: the column-vectorized factorization + row-
-        # vectorized substitution (~2n chunky matvec ops) beat the blocked
-        # lattice recursion 6.1× on the (512,32,32) EKF headline bank
-        # (907 → 149 µs/step, BENCHLOG round 3). Above _COLS_MAX the
-        # re-stacking traffic inverts the verdict (see _COLS_MAX) and the
-        # blocked recursion below takes over. The lattice recursion also
-        # serves Pallas kernels, where Mosaic cannot lower the stacked
-        # matvecs and every lattice statement is a cheap VMEM op.
-        L = _chol_cols(S)
-        return L, _tri_inv_cols(L)
-    if n <= base:
-        L = _chol_unrolled(S)
-        return L, _tri_inv_unrolled(L)
-    p = _next_pow2(n)
-    if p != n:
-        # concatenate-based padding (not .at[].set) so this recursion also
-        # traces inside Pallas kernels, where dynamic_update_slice on values
-        # is unsupported (ops/fused_ekf.py).
-        z_right = jnp.zeros(S.shape[:-2] + (n, p - n), S.dtype)
-        z_left = jnp.zeros(S.shape[:-2] + (p - n, n), S.dtype)
-        eye_blk = jnp.broadcast_to(
-            jnp.eye(p - n, dtype=S.dtype), S.shape[:-2] + (p - n, p - n)
-        )
-        Sp = jnp.concatenate([
-            jnp.concatenate([S, z_right], axis=-1),
-            jnp.concatenate([z_left, eye_blk], axis=-1),
-        ], axis=-2)
-        L, Li = chol_and_inv_lower(Sp, base, force_blocked)
-        return L[..., :n, :n], Li[..., :n, :n]
-    h = n // 2
-    A = S[..., :h, :h]
-    B = S[..., h:, :h]
-    C = S[..., h:, h:]
-    LA, LAi = chol_and_inv_lower(A, base, force_blocked)
-    LB = jnp.matmul(B, jnp.swapaxes(LAi, -1, -2), precision=_HI)
-    schur = C - jnp.matmul(LB, jnp.swapaxes(LB, -1, -2), precision=_HI)
-    LC, LCi = chol_and_inv_lower(symmetrize(schur), base, force_blocked)
-    ll_inv = -jnp.matmul(LCi, jnp.matmul(LB, LAi, precision=_HI),
-                         precision=_HI)
-    z = jnp.zeros(A.shape[:-2] + (h, n - h), S.dtype)
-    L = jnp.concatenate([
-        jnp.concatenate([LA, z], axis=-1),
-        jnp.concatenate([LB, LC], axis=-1),
-    ], axis=-2)
-    Li = jnp.concatenate([
-        jnp.concatenate([LAi, z], axis=-1),
-        jnp.concatenate([ll_inv, LCi], axis=-1),
-    ], axis=-2)
-    return L, Li
+    return jax.scipy.linalg.solve_triangular(L, eye, lower=True)
 
 
 def fast_cholesky(S: jax.Array) -> jax.Array:
-    """Cholesky dispatcher: blocked matmul recursion for batched small
-    matrices (the layout filters live on), native lowering beyond
-    ``_BLOCK_MAX`` — and for genuinely UNBATCHED matrices above the
-    unrolled base (see :func:`_effectively_unbatched`)."""
-    n = S.shape[-1]
-    if n <= _BLOCK_MAX and not (n > _BLOCK_BASE and _effectively_unbatched(S)):
-        if _COLS_MIN < n <= _COLS_MAX:
-            return _chol_cols(S)
-        return cholesky_blocked(S)
+    """Lower Cholesky factor of (batched) PSD ``S``, by :func:`factor_impl`."""
+    if factor_impl(S.shape[-1]) == "unrolled":
+        return _chol_unrolled(S)
     return jnp.linalg.cholesky(S)
 
 
-def tri_solve_lower(L: jax.Array, b: jax.Array) -> jax.Array:
-    """Solve ``L x = b`` (lower triangular) as an inverse-then-matmul — the
-    matmul-friendly replacement for TPU's loop-lowered TriangularSolve."""
-    Li = tri_inv_lower(L)
-    vector_rhs = b.ndim == L.ndim - 1
-    if vector_rhs:
-        return jnp.einsum("...ij,...j->...i", Li, b, precision=_HI)
-    return jnp.matmul(Li, b, precision=_HI)
+def tri_inv_lower(L: jax.Array) -> jax.Array:
+    """Inverse of a (batched) lower-triangular matrix, by
+    :func:`factor_impl`."""
+    if factor_impl(L.shape[-1]) == "unrolled":
+        return _tri_inv_unrolled(L)
+    return _tri_inv_native(L)
+
+
+def chol_and_inv_lower(S: jax.Array):
+    """``(L, L⁻¹)`` for (batched) PSD ``S``: the factor and its inverse,
+    which serve the gain, the log-determinant and the whitened innovation
+    of one update together."""
+    L = fast_cholesky(S)
+    return L, tri_inv_lower(L)
 
 
 def sandwich(f: jax.Array, p: jax.Array) -> jax.Array:
@@ -561,6 +296,11 @@ __all__ = [
     "project_to_psd_fast",
     "sqrtm_psd",
     "cholesky_guarded",
+    "fast_cholesky",
+    "tri_inv_lower",
+    "chol_and_inv_lower",
+    "factor_impl",
+    "sqrt_impl",
     "sandwich",
     "matrix_projection",
 ]

@@ -37,7 +37,7 @@ def collapse(means: jax.Array, covariances: jax.Array, weights: jax.Array):
 
     Vectorized equivalent of the reference's Python loop
     (ref: gaussfiltax/utils.py:10-18): one matvec + one batched outer-product
-    contraction, so it fuses into surrounding filter code on TPU.
+    contraction, so it fuses into surrounding filter code.
 
     Args:
         means: (M, dx) component means.
@@ -79,7 +79,7 @@ def normal_KL_div(mean1, mean2, cov1, cov2) -> jax.Array:
 
 
 def normal_kl(mean1, mean2, cov1, cov2) -> jax.Array:
-    """Textbook KL(N1 || N2) using Cholesky-based solves (TPU-friendly)."""
+    """Textbook KL(N1 || N2) using Cholesky-based solves."""
     mean1, mean2 = jnp.atleast_1d(mean1), jnp.atleast_1d(mean2)
     cov1, cov2 = jnp.atleast_2d(cov1), jnp.atleast_2d(cov2)
     d = cov1.shape[-1]

@@ -1,9 +1,9 @@
 """Resampling kernels for particle and Gaussian-sum filters.
 
-TPU-first design notes: every resampler here reduces to (sorted) cumulative
-sums, ``searchsorted``, and batched gathers — no data-dependent shapes, no
-host round-trips — so they compile to a handful of fused XLA ops inside a
-``lax.scan`` step.
+Design notes: every resampler here reduces to (sorted) cumulative sums,
+``searchsorted``, scatters and batched gathers — no data-dependent shapes,
+no host round-trips — so they compile to a handful of fused XLA ops inside
+a ``lax.scan`` step.
 
 Coverage of the reference surface:
 * multinomial full-reset ``_resample`` — ref: gaussfiltax/utils.py:207-214
@@ -12,7 +12,7 @@ Coverage of the reference surface:
   ref: gaussfiltax/utils.py:189-205
 * NEW (not in reference): systematic and stratified resamplers — the
   standard low-variance choices; a single uniform draw plus a parallel
-  cumsum, the cheapest possible resampler on TPU.
+  cumsum.
 """
 from __future__ import annotations
 
@@ -33,9 +33,9 @@ def effective_sample_size(weights: jax.Array) -> jax.Array:
 def _inverse_cdf(weights: jax.Array, positions: jax.Array) -> jax.Array:
     """Map uniform positions in [0,1) to categorical indices via the CDF.
 
-    ``method="sort"`` matters on TPU: the default binary-scan lowering of
-    ``searchsorted`` costs ~130 ms at 1M elements (measured, v5e), the
-    sort-merge lowering ~20 ms.
+    ``method="sort"`` (one sort-merge of the positions against the CDF)
+    rather than the default per-query binary search; which lowering is
+    faster on the GPU is not measured.
     """
     # XLA's parallel f32 cumsum can dip by an ulp (re-association), and
     # searchsorted on a non-sorted array is undefined — enforce monotonicity.
@@ -48,31 +48,16 @@ def _inverse_cdf(weights: jax.Array, positions: jax.Array) -> jax.Array:
     )
 
 
-def _counts_to_parents(counts: jax.Array, num_samples: int) -> jax.Array:
+def _scatter_counts_to_parents(counts: jax.Array, num_samples: int) -> jax.Array:
     """Expand cumulative child counts into a parent index per output slot.
 
     ``counts[i]`` = number of output slots assigned to particles 0..i;
-    output slot j gets parent ``min{i : counts[i] > j}``. On TPU at
-    ``num_samples ≥ 2^16`` this dispatches to the windowed Pallas count
-    kernel (ops/resample_gather.py): the scatter-add formulation below is
-    row-granular-DMA bound in-scan (9.05 ms/step at 1M, BENCHLOG round 5)
-    while the windowed count is dense VPU work.
+    output slot j gets parent ``min(#{i : counts[i] ≤ j}, n − 1)``: the
+    first particle whose cumulative count exceeds j, and n−1 for a final
+    slot that f32 rounding left unassigned (``counts[-1] < n``), so every
+    index stays in range. One scatter-add of run starts plus one cumsum —
+    O(N), no sort, no searchsorted.
     """
-    from bayesianfiltering_tpu.ops.resample_gather import (
-        windowed_parents,
-        windowed_parents_eligible,
-    )
-
-    if windowed_parents_eligible(num_samples, counts):
-        return windowed_parents(counts, num_samples)
-    return _scatter_counts_to_parents(counts, num_samples)
-
-
-def _scatter_counts_to_parents(counts: jax.Array, num_samples: int) -> jax.Array:
-    """The XLA scatter formulation: one scatter-add + one cumsum — O(N),
-    no sort, no searchsorted. The general-backend path and the in-``cond``
-    fallback of the windowed kernel when weight skew overflows its static
-    window."""
     starts = jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), counts[:-1].astype(jnp.int32)]
     )
@@ -96,21 +81,19 @@ def systematic_counts(key: PRNGKey, weights: jax.Array, num_samples: int) -> jax
     cdf = jnp.cumsum(weights)
     cdf = cdf / cdf[-1]
     # XLA's parallel f32 cumsum can dip by an ulp (re-association); keep the
-    # cumulative counts monotone so downstream consumers (e.g. the Pallas
-    # windowed gather) see a true CDF.
+    # cumulative counts monotone so the parents expansion sees a true CDF.
     return jax.lax.cummax(jnp.clip(jnp.ceil(n * cdf - u0), 0, n))
 
 
 def systematic_resample(key: PRNGKey, weights: jax.Array, num_samples: int) -> jax.Array:
     """Systematic (low-variance) resampling: one uniform, a strided comb.
 
-    Not present in the reference; this is the TPU-native default for the
-    bootstrap PF. With comb positions ``(u0 + j)/n`` the CDF inversion has
-    the closed form ``counts_i = ceil(n·cdf_i − u0)``, so the whole
-    resampler is one cumsum + a counts→parents inversion — O(N) with no
-    searchsorted (which is the dominant cost at 1M particles on TPU).
+    Not present in the reference; this is the default for the bootstrap PF.
+    With comb positions ``(u0 + j)/n`` the CDF inversion has the closed
+    form ``counts_i = ceil(n·cdf_i − u0)``, so the whole resampler is one
+    cumsum + a counts→parents inversion — O(N) with no searchsorted.
     """
-    return _counts_to_parents(
+    return _scatter_counts_to_parents(
         systematic_counts(key, weights, num_samples), num_samples)
 
 
@@ -133,7 +116,7 @@ def stratified_counts(key: PRNGKey, weights: jax.Array, num_samples: int) -> jax
 def stratified_resample(key: PRNGKey, weights: jax.Array, num_samples: int) -> jax.Array:
     """Stratified resampling: one uniform per stratum ``[j/n, (j+1)/n)``;
     O(N) like :func:`systematic_resample`."""
-    return _counts_to_parents(
+    return _scatter_counts_to_parents(
         stratified_counts(key, weights, num_samples), num_samples)
 
 
@@ -141,14 +124,6 @@ _RESAMPLERS = {
     "multinomial": multinomial_resample,
     "systematic": systematic_resample,
     "stratified": stratified_resample,
-}
-
-# counts-based resamplers expose their cumulative-count core so the
-# bootstrap PF's TPU fast path can run the windowed parents kernel with
-# DEFERRAL instead of an in-graph fallback (ops/resample_gather.py).
-_COUNTS_FNS = {
-    "systematic": systematic_counts,
-    "stratified": stratified_counts,
 }
 
 
@@ -159,12 +134,6 @@ def get_resampler(name: str):
         raise ValueError(
             f"unknown resampler {name!r}; expected one of {sorted(_RESAMPLERS)}"
         ) from None
-
-
-def get_counts_fn(name: str):
-    """The cumulative-count core of a counts-based resampler, or None
-    (e.g. multinomial, which has no closed-form counts)."""
-    return _COUNTS_FNS.get(name)
 
 
 def _resample(weights: jax.Array, particles: jax.Array, key: PRNGKey):
@@ -265,7 +234,6 @@ __all__ = [
     "stratified_resample",
     "stratified_counts",
     "get_resampler",
-    "get_counts_fn",
     "_resample",
     "optimal_resampling",
     "resample",

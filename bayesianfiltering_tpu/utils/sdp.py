@@ -47,10 +47,9 @@ def _second_order_operator(hessian: jax.Array, n: int) -> jax.Array:
 def _double_projection(delta: jax.Array, p: jax.Array) -> jax.Array:
     """Project onto {Δ : 0 ⪯ Δ ⪯ P} (alternating, as in the reference).
 
-    Uses the matmul-only Newton–Schulz PSD projection rather than the
-    eigh-based clamp: this function runs inside ``lax.while_loop`` inside the
-    filter scan (autocov="sdp"), and eigh-in-scan is loop-lowered on TPU and
-    hard-faults the device at n≥512 (CLAUDE.md / BENCHLOG.md). Note the
+    Uses :func:`~bayesianfiltering_tpu.utils.linalg.project_to_psd_fast`
+    (this function runs inside ``lax.while_loop`` inside the filter scan,
+    autocov="sdp"). Note the
     fixed-point solver itself is still O(n⁴) memory in the state dimension
     (the (n², n²) second-order operator) — autocov="sdp" is for small-to-
     moderate dx, which is the regime the AGSF splits in.
@@ -86,7 +85,7 @@ def sdp_opt(state_dim: int, N, P, jacobian, hessian, beta, tol: float = 0.1):
     ``min_Δ (β/N)·tr((P−Δ)J^TJ) + (1/4)·Σ_i tr(Δ H_i)^2`` over 0 ⪯ Δ ⪯ P
     by iterating the linear update with alternating PSD projections.
     Unlike the reference, the loop is capped at 100 iterations so a
-    non-contracting instance cannot hang a TPU program.
+    non-contracting instance cannot hang the program.
     """
     n = state_dim
     lhs = _second_order_operator(hessian, n)

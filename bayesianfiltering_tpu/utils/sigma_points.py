@@ -4,10 +4,10 @@ Two generations exist in the reference:
 
 * modern JAX UKF — ``_get_sigma_points`` (ref: gaussfiltax/utils.py:247-254)
   builds 2n points ``m ± sqrt(n+λ)·S`` where ``S = Re(sqrtm(P))`` via SciPy's
-  Schur-based ``sqrtm`` (no TPU kernel, complex intermediates). The *center*
+  Schur-based ``sqrtm`` (complex intermediates). The *center*
   point is handled analytically by the caller
   (ref: gaussfiltax/inference.py:141-143). We keep that contract but build
-  ``S`` with an eigh-based symmetric square root — identical for PSD input.
+  ``S`` with a symmetric PSD square root — identical for PSD input.
 * legacy NumPy UKF — ``split_to_sigma_points`` (ref: gaussfiltax/utils.py:52-65)
   builds 2n+1 points (center first) from Cholesky columns.
 
@@ -19,26 +19,6 @@ import jax
 import jax.numpy as jnp
 
 from bayesianfiltering_tpu.utils.linalg import fast_cholesky, sqrtm_psd
-
-
-def _chol(P: jax.Array) -> jax.Array:
-    """Sigma-point Cholesky factor, backend-dispatched.
-
-    On TPU: fast_cholesky, not jnp.linalg.cholesky — inside a filter scan P
-    is a tracer, and the native batched factorization is loop-lowered
-    (~1 ms per (256,64,64) step; this call was the whole batched-UKF lag
-    behind the EKF, measured round 3: 59.6k → 415.5k steps/s at dx=64).
-    The dispatcher still native-lowers concrete one-off factors and
-    anything above _BLOCK_MAX (dx=512).
-
-    Elsewhere (CPU/GPU): the native lowering is a LAPACK-style custom call —
-    both faster AND far cheaper to compile than the blocked-recursion graph
-    (the full CPU test suite regressed past its timeout when the blocked
-    form was used unconditionally, round 3).
-    """
-    if jax.default_backend() == "tpu":
-        return fast_cholesky(P)
-    return jnp.linalg.cholesky(P)
 
 
 def sigma_points(m: jax.Array, P: jax.Array, lamda, method: str = "sqrtm") -> jax.Array:
@@ -53,7 +33,7 @@ def sigma_points(m: jax.Array, P: jax.Array, lamda, method: str = "sqrtm") -> ja
     """
     dx = m.shape[-1]
     if method == "cholesky":
-        factor = _chol(P)
+        factor = fast_cholesky(P)
     else:
         factor = sqrtm_psd(P)
     scale = jnp.sqrt(dx + lamda)
@@ -77,16 +57,13 @@ def sigma_points_blockdiag(m: jax.Array, P: jax.Array, bias: jax.Array,
     the symmetric PSD root likewise), so this returns bit-for-bit the same
     points as ``sigma_points(concat(m, bias), blkdiag(P, C), ...)`` — the
     reference's augmented form (ref: gaussfiltax/inference.py:151-157) —
-    while factoring dx² + dn² instead of (dx+dn)². On TPU the blocked
-    recursion's compile graph scales superlinearly in n (the (96,96)
-    augmented factor compiled 213 s vs 37 s for the two blocks, BENCHLOG.md
-    round 3), so the non-additive UKF paths build their augmented points
-    here.
+    while factoring dx² + dn² instead of (dx+dn)², so the non-additive UKF
+    paths build their augmented points here.
     """
     dx, dn = m.shape[-1], bias.shape[-1]
     na = dx + dn
     if method == "cholesky":
-        fP, fC = _chol(P), _chol(C)
+        fP, fC = fast_cholesky(P), fast_cholesky(C)
     else:
         fP, fC = sqrtm_psd(P), sqrtm_psd(C)
     scale = jnp.sqrt(na + lamda)
@@ -110,7 +87,7 @@ def split_to_sigma_points(mean: jax.Array, cov: jax.Array, lamda) -> jax.Array:
     mean = jnp.atleast_1d(mean)
     cov = jnp.atleast_2d(cov)
     dx = mean.shape[-1]
-    factor = _chol(cov)
+    factor = fast_cholesky(cov)
     scale = jnp.sqrt(dx + lamda)
     offsets = scale * factor.T  # row i = scaled column i of the factor
     center = mean[None, :]

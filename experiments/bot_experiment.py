@@ -10,14 +10,14 @@ tracking" rows). The notebook's exact configuration is the default:
 * GSF/UGSF with M=100, ParamsUKF(1,0,0);
 * AGSF-ref: [2,2,2], opt_args=(0.8,0.8), multinomial reduction — the
   notebook's cell-6 settings (reported 3.09±0.63 over Nsim=10);
-* AGSF-tpu: [16,2,2], opt_args=(0.9,0.9), systematic reduction — this package's
+* AGSF-rec: [16,2,2], opt_args=(0.9,0.9), systematic reduction — this package's
   recommended configuration (Nsim=100 sweep, EXPERIMENTS.md round 2): iid
   multinomial reduction at M=2 occasionally kills the only on-track
   component (catastrophic RMSE outliers), and top-k stays heavy-tailed at
   narrow banks (mean 14.2 at [8,2,2], 2.45 at [16,2,2]); low-variance
   systematic reduction over the component weights gives mean 1.71
   [1.40, 2.08] — 1.8× better than the reference's headline;
-* UAGSF-tpu: the same [16,2,2]+(0.9,0.9)+systematic recipe applied to the
+* UAGSF-rec: the same [16,2,2]+(0.9,0.9)+systematic recipe applied to the
   UKF-moment AGSF — mean 1.87 [1.53, 2.25], median 1.31, zero divergent at
   Nsim=100, 96 ms/run (the reference's UAGSF diverges: 498±260 at 2.44 s);
 * BPF with 10k particles (notebook cell 6).
@@ -88,8 +88,8 @@ def main():
                 reduction="multinomial",
             )[0]
         ),
-        # This package's recommended configuration (sweep, BENCHLOG.md).
-        "AGSF-tpu": lambda e, k: point(
+        # This package's recommended configuration (EXPERIMENTS.md sweep).
+        "AGSF-rec": lambda e, k: point(
             gf.augmented_gaussian_sum_filter(
                 params, e, [16, 2, 2], k, 1, (0.9, 0.9), inputs,
                 reduction="systematic",
@@ -100,7 +100,7 @@ def main():
                 params, uparams, e, [2, 2, 2], k, 1, (0.8, 0.8), inputs
             )[0]
         ),
-        "UAGSF-tpu": lambda e, k: point(
+        "UAGSF-rec": lambda e, k: point(
             gf.unscented_agsf(
                 params, uparams, e, [16, 2, 2], k, 1, (0.9, 0.9), inputs,
                 reduction="systematic",

@@ -1,14 +1,16 @@
-"""Batched factorization crossover: column-vectorized vs blocked vs native.
+"""Factorization sweep on the card: which Cholesky + triangular inverse, and
+which PSD square root, a filter step should use at each size.
 
-Round 3 introduced the column-vectorized `_chol_cols`/`_tri_inv_cols` for
-batched n in (4, 128] on a (512, 32, 32) measurement (6.1× vs the blocked
-lattice recursion). The batched UKF factorizes (512, 64, 64) sigma-point
-covariances twice per step; its round-5 re-measure came out ~2.5× below
-the round-2 number, so verify the dispatch choice is actually right at
-n=64 (VERDICT r4 weak #3 / task 3).
+Per-step cost of ``(L, L⁻¹)`` for each implementation, by the chained-scan
+slope protocol: K chained steps inside one ``lax.scan`` (each step's output
+feeds the next input, so nothing is hoisted or dead-code-eliminated), timed
+at two K; the slope ``(wall_K2 − wall_K1)/(K2 − K1)`` is the per-step
+device cost with dispatch overhead cancelled.
 
-Chained-scan slope protocol: per-step cost of chol+tri_inv at
-(B, n, n) for each implementation, n in {32, 64, 128}.
+Rows:
+* batched ``(B, n, n)`` — the layout of vmapped filters and mixture banks;
+* unbatched ``(n, n)`` inside a scan — the single-stream filters;
+* PSD square root: Newton–Schulz (matmuls only) vs ``eigh``.
 
 Usage: python experiments/chol_crossover.py [--B 512]
 """
@@ -26,78 +28,121 @@ import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
 
+from bayesianfiltering_tpu import diagnostics
+from bayesianfiltering_tpu.config import enable_compile_cache
 from bayesianfiltering_tpu.utils import linalg as la
 
 
-def _wall(fn, *args):
-    out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[:1]
+def _native(S):
+    L = jnp.linalg.cholesky(S)
+    eye = jnp.broadcast_to(jnp.eye(S.shape[-1], dtype=S.dtype), S.shape)
+    return L, jax.scipy.linalg.solve_triangular(L, eye, lower=True)
+
+
+def _unrolled(S):
+    L = la._chol_unrolled(S)
+    return L, la._tri_inv_unrolled(L)
+
+
+_IMPLS = {"native": _native, "unrolled": _unrolled,
+          "dispatch": la.chol_and_inv_lower}     # what factor_impl picks
+
+
+def _time(run, S):
+    t0 = time.perf_counter()
+    jax.block_until_ready(run(S))
+    compile_s = time.perf_counter() - t0
     best = np.inf
     for _ in range(3):
         t0 = time.perf_counter()
-        out = fn(*args)
-        jax.block_until_ready(out)
-        np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[:1]
+        jax.block_until_ready(run(S))
         best = min(best, time.perf_counter() - t0)
-    return best
+    return best, compile_s
 
 
-def _chain(impl, K):
-    """K chained chol+tri_inv steps: Li feeds the next S so nothing DCEs."""
-
+def _chain_factor(fn, K):
     def step(S, _):
-        if impl == "cols":
-            L = la._chol_cols(S)
-            Li = la._tri_inv_cols(L)
-        elif impl == "fused_blocked":
-            L, Li = la.chol_and_inv_lower(S, force_blocked=True)
-        elif impl == "native":
-            L = jnp.linalg.cholesky(S)
-            eye = jnp.broadcast_to(jnp.eye(S.shape[-1], dtype=S.dtype),
-                                   S.shape)
-            Li = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-        else:
-            raise ValueError(impl)
-        # rebuild a PSD matrix from Li so the chain depends on both outputs
-        S2 = jnp.einsum("...ji,...jk->...ik", Li, Li)
+        L, Li = fn(S)
+        # rebuild a PSD matrix from both outputs so the chain needs them
+        S2 = jnp.einsum("...ji,...jk->...ik", Li, Li) + L
+        S2 = 0.5 * (S2 + jnp.swapaxes(S2, -1, -2))
         n = S.shape[-1]
+        S2 = S2 @ jnp.swapaxes(S2, -1, -2)
         S2 = S2 / (jnp.trace(S2, axis1=-2, axis2=-1)[..., None, None] / n)
-        S2 = 0.5 * (S2 + jnp.swapaxes(S2, -1, -2)) + 0.1 * jnp.eye(
-            n, dtype=S.dtype)
-        return S2, L[..., 0, 0]
+        return S2 + 0.1 * jnp.eye(n, dtype=S.dtype), L[..., 0, 0]
 
-    @jax.jit
-    def run(S):
-        return jax.lax.scan(step, S, jnp.arange(K))[1]
+    return jax.jit(lambda S: jax.lax.scan(step, S, jnp.arange(K))[1])
 
-    return run
+
+def _chain_sqrt(fn, K):
+    def step(S, _):
+        R = fn(S)
+        n = S.shape[-1]
+        S2 = R @ jnp.swapaxes(R, -1, -2) + 0.1 * jnp.eye(n, dtype=S.dtype)
+        S2 = S2 / (jnp.trace(S2, axis1=-2, axis2=-1)[..., None, None] / n)
+        return S2, R[..., 0, 0]
+
+    return jax.jit(lambda S: jax.lax.scan(step, S, jnp.arange(K))[1])
+
+
+def _psd(batch, n, seed):
+    a = jr.normal(jr.PRNGKey(seed), batch + (n, n))
+    return jnp.einsum("...ik,...jk->...ij", a, a) / n + jnp.eye(n)
+
+
+def _row(label, chain, fn, S, k1, k2):
+    try:
+        (w1, c1), (w2, _) = _time(chain(fn, k1), S), _time(chain(fn, k2), S)
+        slope = (w2 - w1) / (k2 - k1)
+        print(f"{label:44s} {slope * 1e6:10.2f} us/step  "
+              f"compile {c1:7.2f} s", flush=True)
+    except Exception as e:  # report and go on: one impl may not lower
+        print(f"{label:44s} FAILED {type(e).__name__}: {str(e)[:160]}",
+              flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", type=int, default=512)
-    ap.add_argument("--K1", type=int, default=50)
-    ap.add_argument("--K2", type=int, default=200)
-    ap.add_argument("--ns", default="32,64,128")
-    ap.add_argument("--impls", default="cols,fused_blocked,native")
+    ap.add_argument("--K1", type=int, default=20)
+    ap.add_argument("--K2", type=int, default=120)
+    ap.add_argument("--batched-ns", default="4,8,16,32,64,128")
+    ap.add_argument("--unbatched-ns", default="4,8,64,128,512")
+    ap.add_argument("--impls", default="unrolled,native,dispatch")
+    ap.add_argument("--unrolled-max", type=int, default=16,
+                    help="largest n timed in the unrolled form (its graph "
+                         "grows as n³ and compiles for tens of seconds)")
     args = ap.parse_args()
-    print(f"backend={jax.default_backend()}  B={args.B}  "
-          f"K1={args.K1} K2={args.K2}")
+    enable_compile_cache()
+    print(diagnostics.card_name_and_power_limit())
+    dev = diagnostics.require_gpu()
+    print(f"platform={dev.platform} kind={dev.device_kind} "
+          f"count={len(jax.devices())} B={args.B} K={args.K1},{args.K2}")
+    impls = args.impls.split(",")
 
-    for n in [int(x) for x in args.ns.split(",")]:
-        key = jr.PRNGKey(n)
-        a = jr.normal(key, (args.B, n, n))
-        S = jnp.einsum("bik,bjk->bij", a, a) / n + jnp.eye(n)
-        for impl in args.impls.split(","):
-            try:
-                w1 = _wall(_chain(impl, args.K1), S)
-                w2 = _wall(_chain(impl, args.K2), S)
-                sl = (w2 - w1) / (args.K2 - args.K1)
-                print(f"n={n:4d} {impl:14s} {sl * 1e6:10.1f} µs/step  "
-                      f"(walls {w1:6.3f} / {w2:6.3f} s)", flush=True)
-            except Exception as e:
-                print(f"n={n:4d} {impl:14s} FAILED: {str(e)[:120]}",
-                      flush=True)
+    with jax.default_matmul_precision("highest"):
+        for n in [int(x) for x in args.batched_ns.split(",")]:
+            S = _psd((args.B,), n, n)
+            for name in impls:
+                if name == "unrolled" and n > args.unrolled_max:
+                    continue
+                _row(f"chol+inv batched B={args.B} n={n} {name}",
+                     _chain_factor, _IMPLS[name], S, args.K1, args.K2)
+        for n in [int(x) for x in args.unbatched_ns.split(",")]:
+            S = _psd((), n, n)
+            for name in impls:
+                if name == "unrolled" and n > args.unrolled_max:
+                    continue
+                _row(f"chol+inv unbatched n={n} {name}",
+                     _chain_factor, _IMPLS[name], S, args.K1, args.K2)
+        for batch, n in [((args.B,), 4), ((args.B,), 8), ((args.B,), 32),
+                         ((args.B,), 64), ((), 64), ((), 128)]:
+            S = _psd(batch, n, 7 * n)
+            tag = f"B={batch[0]}" if batch else "unbatched"
+            _row(f"sqrtm {tag} n={n} newton_schulz", _chain_sqrt,
+                 la.sqrtm_psd_ns, S, args.K1, args.K2)
+            _row(f"sqrtm {tag} n={n} eigh", _chain_sqrt,
+                 la.sqrtm_psd_eigh, S, args.K1, args.K2)
 
 
 if __name__ == "__main__":

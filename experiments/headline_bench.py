@@ -1,10 +1,10 @@
-"""Re-measure the README headline rows under the fetch-synced protocol.
+"""Time the headline rows on the card under the fetch-synced protocol.
 
-Rows (BENCHLOG.md round 2/3 provenance):
+Rows:
   * batched EKF  Lorenz-96 dx=64/dy=32, B=512, T=1000  (north star row)
   * batched UKF  additive + non-additive (augmented), same workload
-  * single-stream EKF dx=64 (fused Pallas step)
-  * single-stream UKF dx=64 (fused UT kernels, sqrtm + cholesky factor)
+  * single-stream EKF dx=64
+  * single-stream UKF dx=64 (sqrtm + cholesky factor)
   * EKF / UKF at dx=512 (BASELINE config 5)
   * 1M-particle bootstrap PF, dx=8
 
@@ -44,7 +44,13 @@ def main():
     from bayesianfiltering_tpu.models import zoo
     from bayesianfiltering_tpu.ops import ParamsUKF
 
-    print(f"backend={jax.default_backend()} devices={jax.devices()}")
+    from bayesianfiltering_tpu import diagnostics
+    from bayesianfiltering_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
+    print(diagnostics.card_name_and_power_limit())
+    dev = diagnostics.require_gpu()
+    print(f"platform={dev.platform} kind={dev.device_kind} devices={jax.devices()}")
     T = args.T
 
     def report(name, fn, *a, steps=None):

@@ -11,8 +11,8 @@ same validation surface the driver's dryrun uses. Reports:
   * agreement of the mixture point estimates between the two modes.
 
 Provenance note: CPU-mesh walls validate the *collective structure* and
-give an honest A/B of gathered-vs-local overhead; absolute per-step times
-are not TPU numbers (BENCHLOG.md records the run).
+give an A/B of gathered-vs-local overhead on that mesh; they are not
+device numbers.
 
 Usage: python experiments/sharded_agsf_scale.py [--M 6400] [--N 4] [--L 4]
 """

@@ -62,7 +62,7 @@ def main():
             params, uparams, e, inputs=inputs).smoothed_means,
         # nominal="filter": the deterministic-rollout seed diverges from
         # the data exponentially on this UNSTABLE (1.05-drift) model —
-        # seed-dependent heavy tails at T=100 (measured; BENCHLOG round 3).
+        # seed-dependent heavy tails at T=100.
         "IEKS": lambda e, k: parallel_iterated_extended_smoother(
             params, e, num_iter=ni, inputs=inputs, nominal="filter",
             damping=0.7)[0].smoothed_means,

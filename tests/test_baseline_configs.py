@@ -1,7 +1,7 @@
 """The five BASELINE.json benchmark configs as CI checks (SURVEY.md §7.9).
 
 CPU-runnable versions are asserted here (reduced sizes where the full config
-is TPU-scale); the full-size numbers live in BENCHLOG.md.
+needs a card); the full sizes run on the GPU in chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -78,8 +78,7 @@ class TestBaselineConfigs:
 
     def test_config5_lorenz96_highdim_ukf_batched(self):
         """Config 5: Lorenz-96 high-dim UKF + vmapped batch of sequences
-        (dx reduced 512→32 and batch 1k→8 for CPU CI; full scale in
-        BENCHLOG.md)."""
+        (dx reduced 512→32 and batch 1k→8 for CPU CI)."""
         dx = 32
         model, params, _ = zoo.lorenz96(dx, dx // 2)
         keys = jr.split(jr.PRNGKey(6), 8)

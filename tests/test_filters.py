@@ -164,7 +164,7 @@ class TestAGSF:
 
     def test_agsf_num_iter_honored(self, bot):
         """num_iter must change the AGSF update (IEKF relinearization) —
-        it was silently ignored in round 1 (VERDICT.md weak #5)."""
+        it was once silently ignored."""
         _, params, _, inputs, _, emissions = bot
         run = lambda k: gf.augmented_gaussian_sum_filter(
             params, emissions, [3, 2, 2], jr.PRNGKey(1), k, (0.1, 0.1), inputs
@@ -187,7 +187,7 @@ class TestAGSF:
 
     def test_agsf_rng_key_controls_init(self, bot):
         """The caller's rng_key must control the mixture init draw; round 1
-        hard-coded PRNGKey(0) (VERDICT.md weak #7). compat_fixed_keys=True
+        hard-coded PRNGKey(0). compat_fixed_keys=True
         restores the reference's fixed-key init."""
         _, params, _, inputs, _, emissions = bot
         run = lambda key, **kw: gf.augmented_gaussian_sum_filter(
@@ -295,7 +295,7 @@ class TestAccuracy:
 
 
 class TestIteratedUpdates:
-    """IEKF / IPLF relinearization (num_iter semantics, VERDICT.md #6)."""
+    """IEKF / IPLF relinearization (num_iter semantics)."""
 
     def _stiff_update_args(self):
         h = lambda x, r, u: 0.05 * x**2 + r
@@ -346,8 +346,7 @@ class TestIteratedUpdates:
 
     def test_ukf_update_psd_on_tiny_noise(self):
         """Joseph-style grouped downdate keeps the UKF posterior covariance
-        PSD with near-singular innovation covariance (ADVICE.md #5; the
-        difference form P − K S Kᵀ goes indefinite under f32 cancellation)."""
+        PSD with near-singular innovation covariance (the difference form P − K S Kᵀ goes indefinite under f32 cancellation)."""
         from bayesianfiltering_tpu.ops import ukf as _ukf
 
         h = lambda x, r, u: x[:1] + r  # observe first coordinate
@@ -365,7 +364,7 @@ class TestIteratedUpdates:
 class TestBPFLogWeights:
     def test_underflowed_weights_survive_no_resample(self, bot):
         """f32-underflowed weights (w=0, finite log-weight) must not become
-        -inf through the no-resample branch (ADVICE.md #2)."""
+        -inf through the no-resample branch."""
         from bayesianfiltering_tpu.streaming import make_bpf_stepper
 
         _, _, bpf_params, inputs, _, emissions = bot

@@ -255,7 +255,7 @@ class TestLongSequenceEMDispatch:
 class TestNonlinearEM:
     """Extended EM on the nonlinear model classes — the last capability slot
     of the reference's fit_em surface (ref: gaussfiltax/ssm.py:302-399,
-    abstract e_step) with no working path (VERDICT round 2, missing #1)."""
+    abstract e_step), which had no working path."""
 
     def _props_noise_only(self, params):
         frozen = ParameterProperties(trainable=False)

@@ -1,690 +1,222 @@
-"""Pallas bank-linalg kernels vs XLA references (interpret mode on CPU)."""
-import functools
-
+"""The Triton bank kernels (ops/bank_update.py): interpret mode on CPU
+against the XLA reference, the gradient rule, and the choice of
+implementation. The compiled kernels run only on a GPU (marker ``gpu``)."""
 import jax
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
 import pytest
 
-from bayesianfiltering_tpu.ops import pallas_kernels as pk
-
-pl = pytest.importorskip("jax.experimental.pallas")
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
-
-
-def _interpret(fn, *args, **kw):
-    with pltpu.force_tpu_interpret_mode():
-        return fn(*args, use_pallas=True, **kw)
+import bayesianfiltering_tpu.inference as gf
+from bayesianfiltering_tpu.models import zoo
+from bayesianfiltering_tpu.ops import bank_update as bu
+from bayesianfiltering_tpu.ops import ekf as _ekf
 
 
-def _random_psd_bank(key, m, d):
-    a = jr.normal(key, (m, d, d))
-    return jnp.einsum("mik,mjk->mij", a, a) + d * jnp.eye(d)
+def _bank(m, dx, dy, seed=12):
+    k = jr.split(jr.PRNGKey(seed), 5)
+    ms = jr.normal(k[0], (m, dx))
+    a = jr.normal(k[1], (m, dx, dx))
+    Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
+    Hx = jr.normal(k[2], (m, dy, dx))
+    b = jr.normal(k[3], (m, dy, dy))
+    Rt = jnp.einsum("mik,mjk->mij", b, b) * 0.1 + 0.05 * jnp.eye(dy)
+    innov = jr.normal(k[4], (m, dy))
+    return ms, Ps, Hx, Rt, innov
 
 
-class TestBankLayout:
-    def test_roundtrip(self):
-        a = jr.normal(jr.PRNGKey(0), (7, 3, 4))
-        back = pk.from_bank_major(pk.to_bank_major(a), 3, 4)
-        np.testing.assert_array_equal(a, back)
+def _predict_bank(m, dx, dq, seed=13):
+    k = jr.split(jr.PRNGKey(seed), 3)
+    Fx = jr.normal(k[0], (m, dx, dx))
+    a = jr.normal(k[1], (m, dx, dx))
+    P = jnp.einsum("mik,mjk->mij", a, a) + jnp.eye(dx)
+    Fq = jr.normal(k[2], (m, dx, dq))
+    Q = jnp.diag(jnp.arange(1.0, dq + 1))
+    return Fx, P, Fq, Q
 
 
-class TestFusedBankUpdate:
-    """ops/bank_update.py: the fused EKF update/predict kernels vs the
-    vmapped ops/ekf.py primitives (interpret mode on CPU)."""
+@pytest.fixture
+def kernel_everywhere(monkeypatch):
+    """Route every bank primitive through the kernel in interpret mode."""
+    monkeypatch.setattr(bu, "bank_impl", lambda *a, **k: "interpret")
 
-    def _bank(self, m=130, dx=4, dy=2):
-        from bayesianfiltering_tpu.ops import bank_update as bu
 
-        k = jr.split(jr.PRNGKey(11), 6)
-        ms = jr.normal(k[0], (m, dx))
-        a = jr.normal(k[1], (m, dx, dx))
-        Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
-        return bu, ms, Ps, k
+class TestBankUpdateKernel:
+    # tails: 130 and 37 are not multiples of the 128-component block
+    @pytest.mark.parametrize("m,dx,dy", [(128, 4, 2), (130, 4, 1),
+                                         (200, 2, 1), (37, 4, 4), (5, 1, 1),
+                                         (300, 3, 2)])
+    def test_matches_xla(self, m, dx, dy):
+        args = _bank(m, dx, dy)
+        ref = bu._update_xla(*args, 0.0)
+        out = bu._update_pallas(*args, 0.0, interpret=True)
+        for name, r, o in zip(("ll", "mean", "cov", "gain"), ref, out):
+            assert o.shape == r.shape, name
+            np.testing.assert_allclose(o, r, rtol=5e-4, atol=5e-4,
+                                       err_msg=name)
 
-    @pytest.mark.parametrize("m,dx,dy", [(128, 4, 2), (130, 4, 2), (200, 2, 1)])
-    def test_chol_update_matches_xla(self, m, dx, dy):
-        from bayesianfiltering_tpu.ops import bank_update as bu
-
-        k = jr.split(jr.PRNGKey(12), 6)
-        ms = jr.normal(k[0], (m, dx))
-        a = jr.normal(k[1], (m, dx, dx))
-        Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
-        Hx = jr.normal(k[2], (m, dy, dx))
-        b = jr.normal(k[3], (m, dy, dy))
-        Rt = jnp.einsum("mik,mjk->mij", b, b) * 0.1 + 0.05 * jnp.eye(dy)
-        innov = jr.normal(k[4], (m, dy))
-        ref = bu._update_xla(ms, Ps, Hx, Rt, innov, 0.0)
-        with pltpu.force_tpu_interpret_mode():
-            out = bu.bank_chol_update(ms, Ps, Hx, Rt, innov, 0.0,
-                                      use_pallas=True)
+    def test_absolute_jitter(self):
+        args = _bank(50, 3, 2)
+        ref = bu._update_xla(*args, 0.3)
+        out = bu._update_pallas(*args, 0.3, interpret=True)
         for r, o in zip(ref, out):
             np.testing.assert_allclose(o, r, rtol=5e-4, atol=5e-4)
 
-    def test_predict_cov_matches_einsum(self):
-        from bayesianfiltering_tpu.ops import bank_update as bu
+    def test_vmapped_adds_a_grid_axis(self):
+        """Under vmap (e.g. a batch of GSFs) the kernel gains a batch grid
+        axis; results equal the vmapped reference."""
+        args = [jnp.stack([x, 1.1 * x, 0.9 * x]) for x in _bank(130, 4, 1)]
+        out = jax.vmap(lambda *a: bu._update_pallas(*a, 0.0,
+                                                    interpret=True))(*args)
+        ref = jax.vmap(lambda *a: bu._update_xla(*a, 0.0))(*args)
+        for r, o in zip(ref, out):
+            np.testing.assert_allclose(o, r, rtol=5e-4, atol=5e-4)
 
-        m, dx, dq = 150, 4, 3
-        k = jr.split(jr.PRNGKey(13), 3)
-        Fx = jr.normal(k[0], (m, dx, dx))
-        a = jr.normal(k[1], (m, dx, dx))
-        P = jnp.einsum("mik,mjk->mij", a, a) + jnp.eye(dx)
-        Fq = jr.normal(k[2], (m, dx, dq))
-        Q = jnp.diag(jnp.arange(1.0, dq + 1))
-        ref = bu._predict_cov_xla(Fx, P, Fq, Q)
-        with pltpu.force_tpu_interpret_mode():
-            out = bu.bank_predict_cov(Fx, P, Fq, Q, use_pallas=True)
-        np.testing.assert_allclose(out, ref, rtol=5e-4, atol=5e-4)
 
+class TestBankPredictKernel:
+    @pytest.mark.parametrize("m,dx,dq", [(150, 4, 3), (129, 4, 4),
+                                         (7, 2, 1)])
+    def test_matches_xla(self, m, dx, dq):
+        args = _predict_bank(m, dx, dq)
+        np.testing.assert_allclose(
+            bu._predict_pallas(*args, interpret=True), bu._predict_xla(*args),
+            rtol=5e-4, atol=5e-4)
+
+
+class TestBankWrappers:
     @pytest.mark.parametrize("num_iter", [1, 3])
-    def test_iterated_update_matches_vmapped_iekf(self, num_iter):
-        from bayesianfiltering_tpu.ops import bank_update as bu
-        from bayesianfiltering_tpu.ops import ekf as _ekf
-
+    def test_iterated_update_matches_vmapped_iekf(self, num_iter,
+                                                  kernel_everywhere):
         m, dx, dy = 130, 4, 2
-        k = jr.split(jr.PRNGKey(14), 4)
+        k = jr.split(jr.PRNGKey(14), 3)
         ms = jr.normal(k[0], (m, dx))
         a = jr.normal(k[1], (m, dx, dx))
         Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
-        R = jnp.eye(dy) * 2.5e-5
-        r0 = jnp.zeros(dy)
+        R, r0 = jnp.eye(dy) * 2.5e-5, jnp.zeros(dy)
         y = jr.normal(k[2], (dy,))
         h = lambda x, r, u: jnp.array(
             [jnp.sqrt(x[0] ** 2 + x[2] ** 2), jnp.arctan2(x[2], x[0])]) + r
         H_x, H_r = jax.jacfwd(h, 0), jax.jacfwd(h, 1)
         vu = jax.vmap(_ekf.ekf_condition_on_iterated,
-                      in_axes=(0, 0, None, None, None, None, None, None,
-                               None, None, None))
+                      in_axes=(0, 0) + (None,) * 9)
         ref = vu(ms, Ps, h, H_x, H_r, R, r0, 0.0, y, num_iter, 0.0)
-        with pltpu.force_tpu_interpret_mode():
-            out = bu.bank_ekf_condition_on_iterated(
-                ms, Ps, h, H_x, H_r, R, r0, 0.0, y, num_iter, 0.0,
-                use_pallas=True)
+        out = bu.bank_ekf_condition_on_iterated(ms, Ps, h, H_x, H_r, R, r0,
+                                                0.0, y, num_iter, 0.0)
         for r, o in zip(ref, out):
             np.testing.assert_allclose(o, r, rtol=1e-3, atol=1e-3)
 
-    def test_scalar_emission_bank(self):
-        from bayesianfiltering_tpu.ops import bank_update as bu
-        from bayesianfiltering_tpu.ops import ekf as _ekf
-
-        m, dx = 64, 3
-        k = jr.split(jr.PRNGKey(15), 3)
-        ms = jr.normal(k[0], (m, dx))
-        a = jr.normal(k[1], (m, dx, dx))
-        Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
-        h = lambda x, r, u: jnp.atleast_1d(0.1 * jnp.dot(x, x)) + r
-        R = jnp.eye(1) * 0.5
-        r0, y = jnp.zeros(1), jnp.ones(1)
-        vu = jax.vmap(_ekf.ekf_condition_on_iterated,
-                      in_axes=(0, 0, None, None, None, None, None, None,
-                               None, None, None))
-        ref = vu(ms, Ps, h, jax.jacfwd(h, 0), jax.jacfwd(h, 1), R, r0, 0.0,
-                 y, 1, 0.0)
-        out = bu.bank_ekf_condition_on_iterated(
-            ms, Ps, h, jax.jacfwd(h, 0), jax.jacfwd(h, 1), R, r0, 0.0, y,
-            1, 0.0)
+    def test_predict_matches_vmapped_ekf(self, kernel_everywhere):
+        m, dx = 70, 4
+        ms = jr.normal(jr.PRNGKey(1), (m, dx))
+        Ps = _predict_bank(m, dx, 2)[1]
+        W = jr.normal(jr.PRNGKey(2), (dx, dx)) / 3
+        G = jr.normal(jr.PRNGKey(3), (dx, 2))
+        f = lambda x, q, u: jnp.tanh(W @ x) + G @ q
+        F_x, F_q = jax.jacfwd(f, 0), jax.jacfwd(f, 1)
+        Q, q0 = jnp.eye(2), jnp.zeros(2)
+        ref = jax.vmap(_ekf.ekf_predict, in_axes=(0, 0) + (None,) * 6)(
+            ms, Ps, f, F_x, F_q, Q, q0, 0.0)
+        out = bu.bank_ekf_predict(ms, Ps, f, F_x, F_q, Q, q0, 0.0)
         for r, o in zip(ref, out):
             np.testing.assert_allclose(o, r, rtol=5e-4, atol=5e-4)
 
-    def test_grad_through_fused_update(self):
-        from bayesianfiltering_tpu.ops import bank_update as bu
+    def test_gsf_and_agsf_with_kernel_match_xla(self, monkeypatch):
+        """The whole filter, bank steps through the interpreted kernel, vs
+        the XLA bank (BOT: dx=4, dq=2, dy=1)."""
+        model, params, _ = zoo.bearings_only_tracking()
+        inputs = zoo.bot_maneuver_inputs(12)
+        _, em = model.sample(params, jr.PRNGKey(0), 12, inputs=inputs)
 
-        m, dx, dy = 64, 3, 2
-        k = jr.split(jr.PRNGKey(16), 5)
-        ms = jr.normal(k[0], (m, dx))
-        a = jr.normal(k[1], (m, dx, dx))
-        Ps = jnp.einsum("mik,mjk->mij", a, a) + 0.5 * jnp.eye(dx)
-        Hx = jr.normal(k[2], (m, dy, dx))
-        Rt = jnp.broadcast_to(0.1 * jnp.eye(dy), (m, dy, dy))
-        innov = jr.normal(k[3], (m, dy))
+        def run():
+            g = gf.gaussian_sum_filter(params, em, 8, 1, inputs)
+            a = gf.augmented_gaussian_sum_filter(params, em, [4, 2, 2],
+                                                 jr.PRNGKey(1), 1,
+                                                 (0.1, 0.1), inputs)[0]
+            return g.means, g.marginal_loglik, a.means
 
-        def loss(P):
-            ll, mean, cov, K = bu.bank_chol_update(ms, P, Hx, Rt, innov, 0.0)
-            return jnp.sum(ll) + jnp.sum(mean) + jnp.sum(cov)
-
-        g = jax.grad(loss)(Ps)
-        assert bool(jnp.all(jnp.isfinite(g)))
-
-
-class TestFusedSingleStream:
-    """ops/fused_ekf.py: single-stream fused update/predict kernels."""
-
-    def _problem(self, dx=16, dy=8):
-        k = jr.split(jr.PRNGKey(21), 5)
-        m = jr.normal(k[0], (dx,))
-        a = jr.normal(k[1], (dx, dx))
-        P = a @ a.T + 0.5 * jnp.eye(dx)
-        Hx = jr.normal(k[2], (dy, dx))
-        b = jr.normal(k[3], (dy, dy))
-        Rt = b @ b.T * 0.01 + 0.05 * jnp.eye(dy)
-        innov = jr.normal(k[4], (dy,))
-        return m, P, Hx, Rt, innov
-
-    def test_kernel_matches_xla(self):
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
-
-        m, P, Hx, Rt, innov = self._problem()
-        ref = fe._update_xla(m, P, Hx, Rt, innov, 0.0)
-        with pltpu.force_tpu_interpret_mode():
-            out = fe._update_pallas(m, P, Hx, Rt, innov, 0.0)
+        ref = run()
+        monkeypatch.setattr(bu, "bank_impl", lambda *a, **k: "interpret")
+        out = run()
         for r, o in zip(ref, out):
             np.testing.assert_allclose(o, r, rtol=2e-3, atol=2e-3)
 
-    def test_predict_kernel_matches_xla(self):
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
 
-        dx, dq = 16, 8
-        k = jr.split(jr.PRNGKey(22), 3)
-        Fx = jr.normal(k[0], (dx, dx))
-        a = jr.normal(k[1], (dx, dx))
-        P = a @ a.T + jnp.eye(dx)
-        Fq = jr.normal(k[2], (dx, dq))
-        Q = jnp.diag(jnp.arange(1.0, dq + 1))
-        ref = fe._predict_xla(Fx, P, Fq, Q)
-        with pltpu.force_tpu_interpret_mode():
-            out = fe._predict_pallas(Fx, P, Fq, Q)
-        np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-3)
+class TestGradientRule:
+    """The kernels are forward-only; the custom VJP differentiates the XLA
+    reference. Gradients through the kernel path equal the reference's."""
 
-    def test_iterated_wrapper_matches_ekf(self):
-        from bayesianfiltering_tpu.ops import ekf as _ekf
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
+    @pytest.mark.parametrize("argnum", [0, 1, 2, 3, 4])
+    def test_update_grad_matches_reference(self, argnum):
+        args = list(_bank(40, 3, 2))
 
-        dx, dy = 6, 3
-        k = jr.split(jr.PRNGKey(23), 3)
-        m = jr.normal(k[0], (dx,))
-        a = jr.normal(k[1], (dx, dx))
-        P = a @ a.T + 0.5 * jnp.eye(dx)
-        R = 0.1 * jnp.eye(dy)
-        r0 = jnp.zeros(dy)
-        y = jr.normal(k[2], (dy,))
-        h = lambda x, r, u: jnp.tanh(x[:3]) * x[3:] + r
-        H_x, H_r = jax.jacfwd(h, 0), jax.jacfwd(h, 1)
-        for ni in (1, 3):
-            ref = _ekf.ekf_condition_on_iterated(m, P, h, H_x, H_r, R, r0,
-                                                 0.0, y, ni, 0.0)
-            out = fe.fused_ekf_condition_on_iterated(m, P, h, H_x, H_r, R,
-                                                     r0, 0.0, y, ni, 0.0)
-            for r, o in zip(ref, out):
-                np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4)
+        def loss(impl, x):
+            a = list(args)
+            a[argnum] = x
+            if impl == "ref":
+                ll, mean, cov, K = bu._update_xla(*a, 0.0)
+            else:
+                ll, mean, cov, K = bu._bank_chol_update(*a, 0.0, impl)
+            return jnp.sum(ll) + jnp.sum(mean) + jnp.sum(cov) + jnp.sum(K)
 
-    def test_grad_through_fused_single(self):
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
+        g_ref = jax.grad(lambda x: loss("ref", x))(args[argnum])
+        g_ker = jax.grad(lambda x: loss("interpret", x))(args[argnum])
+        assert bool(jnp.isfinite(g_ker).all())
+        np.testing.assert_allclose(g_ker, g_ref, rtol=1e-5, atol=1e-5)
 
-        m, P, Hx, Rt, innov = self._problem(8, 4)
+    def test_predict_grad_matches_reference(self):
+        Fx, P, Fq, Q = _predict_bank(20, 3, 2)
+        g_ref = jax.grad(lambda p: jnp.sum(bu._predict_xla(Fx, p, Fq, Q)))(P)
+        g_ker = jax.grad(lambda p: jnp.sum(
+            bu._bank_predict_cov(Fx, p, Fq, Q, "interpret")))(P)
+        np.testing.assert_allclose(g_ker, g_ref, rtol=1e-5, atol=1e-5)
 
-        def loss(P):
-            ll, mean, cov, K = fe._fused_update(m, P, Hx, Rt, innov, 0.0,
-                                                False)
-            return jnp.sum(ll) + jnp.sum(mean) + jnp.sum(cov)
-
-        g = jax.grad(loss)(P)
-        assert bool(jnp.all(jnp.isfinite(g)))
+    def test_traced_jitter_takes_differentiable_xla_path(self):
+        args = _bank(10, 2, 1)
+        g = jax.grad(lambda j: jnp.sum(bu.bank_chol_update(*args, j)[0]))(0.1)
+        assert bool(jnp.isfinite(g))
 
 
-class TestVmapGate:
-    """Pins the vmap gate that keeps the fused single-stream kernels OFF
-    under batching (the measured 7× cliff, BENCHLOG.md round 2)."""
+class TestDispatchTable:
+    """bank_impl: the one place the bank implementation is chosen."""
 
-    def test_is_vmapped_detects_batch_tracer(self):
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
+    @pytest.mark.parametrize("backend,dims,dtype,jitter,expect", [
+        ("gpu", (4, 1), jnp.float32, 0.0, "triton"),
+        ("gpu", (4, 4), jnp.float32, 0.0, "triton"),
+        ("gpu", (5, 1), jnp.float32, 0.0, "xla"),
+        ("gpu", (4, 8), jnp.float32, 0.0, "xla"),
+        ("gpu", (4, 1), jnp.float64, 0.0, "xla"),
+        ("gpu", (4, 1), jnp.float32, jnp.float32(0.1), "xla"),
+        ("cpu", (4, 1), jnp.float32, 0.0, "xla"),
+    ])
+    def test_choice(self, monkeypatch, backend, dims, dtype, jitter, expect):
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        assert bu.bank_impl(*dims, dtype=dtype, jitter=jitter) == expect
 
-        seen = []
+    def test_default_device_cpu_overrides_gpu_backend(self, monkeypatch):
+        """A CPU computation traced next to a GPU (jax.default_device) takes
+        the XLA path: Triton kernels cannot lower for the CPU."""
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        with jax.default_device(jax.devices("cpu")[0]):
+            assert bu.bank_impl(4, 1, dtype=jnp.float32) == "xla"
 
-        def probe(x):
-            seen.append(fe._is_vmapped(x))
-            return x
-
-        probe(jnp.ones(3))
-        jax.vmap(probe)(jnp.ones((4, 3)))
-        assert seen == [False, True]
-
-    def test_is_vmapped_any_operand(self):
-        # Batching only the noise operand must still trip the gate
-        # (ADVICE round 2: Rt/Q were omitted from the checked arrays).
-        from bayesianfiltering_tpu.ops import fused_ekf as fe
-
-        seen = []
-
-        def probe(rt):
-            seen.append(fe._is_vmapped(jnp.ones(3), rt))
-            return rt
-
-        jax.vmap(probe)(jnp.ones((4, 2, 2)))
-        assert seen == [True]
-
-    def test_is_vmapped_fails_closed(self, monkeypatch):
-        # If the jax-internal import ever moves, the gate must report
-        # "vmapped" (disable pallas) rather than silently re-enable the
-        # sequential-grid pathology.
-        from bayesianfiltering_tpu.utils import linalg as la
-
-        def boom():
-            raise ImportError("jax internals moved")
-
-        monkeypatch.setattr(la, "_batch_tracer_cls", boom)
-        assert la._is_vmapped(jnp.ones(3)) is True
-
-    def test_filter_gate_disables_under_vmap(self):
-        from bayesianfiltering_tpu import inference as gf
-        from bayesianfiltering_tpu.models import zoo
-
-        _, params, _ = zoo.scalar_growth()
-        gates = []
-
-        def probe(emissions):
-            gates.append(gf._filter_vmap_gate(params, emissions, None))
-            return emissions
-
-        probe(jnp.ones((5, 1)))
-        jax.vmap(probe)(jnp.ones((3, 5, 1)))
-        # unbatched → None (defer to size heuristics); batched → False (off)
-        assert gates == [None, False]
-
-
-class TestFusedUT:
-    """ops/fused_ut.py: the fused single-stream UT kernels vs the
-    ops/ukf.py primitives (interpret mode on CPU)."""
-
-    def _setup(self, dx=8, dy=5):
-        k = jr.PRNGKey(7)
-        a = jr.normal(k, (dx, dx))
-        P = a @ a.T / dx + jnp.eye(dx)
-        m = jr.normal(jr.fold_in(k, 1), (dx,))
-        b = jr.normal(jr.fold_in(k, 2), (dy, dy))
-        R = b @ b.T / dy + 0.5 * jnp.eye(dy)
-        Q = 0.3 * jnp.eye(dx)
-        y = jr.normal(jr.fold_in(k, 3), (dy,))
-        H = jr.normal(jr.fold_in(k, 4), (dy, dx))
-        f = lambda x, q, u: jnp.tanh(x) + 0.9 * x + q
-        h = lambda x, r, u: H @ jnp.sin(x) + r
-        return m, P, Q, R, y, f, h
-
-    @pytest.mark.parametrize("method", ["cholesky", "sqrtm"])
-    @pytest.mark.parametrize("additive", [True, False])
-    def test_predict_matches_xla(self, method, additive):
-        from bayesianfiltering_tpu.ops import fused_ut as fut
-        from bayesianfiltering_tpu.ops import ukf as uk
-
-        m, P, Q, R, y, f, h = self._setup()
-        up = uk.ParamsUKF(alpha=1.0, beta=2.0, kappa=0.0, sqrt_method=method)
-        q0 = jnp.zeros(m.shape[-1])
-        fused = (fut.fused_ukf_predict_additive if additive
-                 else fut.fused_ukf_predict_nonadditive)
-        plain = (uk.ukf_predict_additive if additive
-                 else uk.ukf_predict_nonadditive)
-        with pltpu.force_tpu_interpret_mode():
-            mu_k, cov_k = fused(m, P, f, None, Q, up, q0, use_pallas=True)
-        mu_x, cov_x = plain(m, P, f, None, Q, up, q0)
-        np.testing.assert_allclose(mu_k, mu_x, rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(cov_k, cov_x, rtol=2e-5, atol=2e-5)
-
-    @pytest.mark.parametrize("method", ["cholesky", "sqrtm"])
-    @pytest.mark.parametrize("additive", [True, False])
-    def test_update_matches_xla(self, method, additive):
-        from bayesianfiltering_tpu.ops import fused_ut as fut
-        from bayesianfiltering_tpu.ops import ukf as uk
-
-        m, P, Q, R, y, f, h = self._setup()
-        up = uk.ParamsUKF(alpha=1.0, beta=2.0, kappa=0.0, sqrt_method=method)
-        r0 = jnp.zeros(y.shape[-1])
-        fused = (fut.fused_ukf_condition_on_additive if additive
-                 else fut.fused_ukf_condition_on_nonadditive)
-        plain = (uk.ukf_condition_on_additive if additive
-                 else uk.ukf_condition_on_nonadditive)
-        with pltpu.force_tpu_interpret_mode():
-            out_k = fused(m, P, h, R, None, y, up, r0, use_pallas=True)
-        out_x = plain(m, P, h, R, None, y, up, r0)
-        for a, b, nm in zip(out_k, out_x, ("ll", "mean", "cov")):
-            np.testing.assert_allclose(a, b, rtol=3e-5, atol=3e-5,
-                                       err_msg=f"{method} {additive} {nm}")
-
-    def test_gate_off_under_vmap_and_residual(self):
-        from bayesianfiltering_tpu.ops import fused_ut as fut
-        from bayesianfiltering_tpu.ops import ukf as uk
-
-        m, P, Q, R, y, f, h = self._setup()
-        up = uk.ParamsUKF(alpha=1.0, sqrt_method="cholesky")
-        # Batched operands must never reach a pallas_call: the XLA
-        # fallback is the only valid path, so vmapping the wrapper with
-        # use_pallas left undecided must equal vmapping the plain op.
-        ms = jnp.stack([m, m + 0.1])
-        Ps = jnp.stack([P, P * 1.1])
-        q0 = jnp.zeros(m.shape[-1])
-        out_k = jax.vmap(
-            lambda mm, pp: fut.fused_ukf_predict_additive(
-                mm, pp, f, None, Q, up, q0)[1]
-        )(ms, Ps)
-        out_x = jax.vmap(
-            lambda mm, pp: uk.ukf_predict_additive(mm, pp, f, None, Q, up,
-                                                   q0)[1]
-        )(ms, Ps)
-        np.testing.assert_allclose(out_k, out_x, rtol=1e-6)
-
-    def test_grad_flows_through_wrapper(self):
-        from bayesianfiltering_tpu.ops import fused_ut as fut
-        from bayesianfiltering_tpu.ops import ukf as uk
-
-        m, P, Q, R, y, f, h = self._setup()
-        up = uk.ParamsUKF(alpha=1.0, sqrt_method="cholesky")
-        r0 = jnp.zeros(y.shape[-1])
-
-        def loss(P):
-            ll, mn, cv = fut.fused_ukf_condition_on_additive(
-                m, P, h, R, None, y, up, r0, use_pallas=False)
-            return ll + jnp.sum(mn) + jnp.sum(cv)
-
-        g = jax.grad(loss)(P)
-        assert bool(jnp.isfinite(g).all())
-
-
-class TestBankCombine:
-    """Fused associative-filtering combine kernel (ops/bank_combine.py) vs
-    the XLA Woodbury combine (interpret mode on CPU)."""
-
-    @staticmethod
-    def _elements(key, m, dx, dy=2, singular_head=0):
-        ks = jr.split(key, 5)
-        A = jr.normal(ks[0], (m, dx, dx)) * 0.5
-        b = jr.normal(ks[1], (m, dx))
-        cr = jr.normal(ks[2], (m, dx, dx)) * 0.3
-        C = cr @ jnp.swapaxes(cr, -1, -2) + 0.01 * jnp.eye(dx)
-        if singular_head:
-            # rank-deficient-Q regime: exactly singular C lanes
-            C = C.at[:singular_head].set(0.0)
-        jr_ = jr.normal(ks[3], (m, dx, dy)) * 0.4
-        J = jr_ @ jnp.swapaxes(jr_, -1, -2)   # rank dy < dx
-        eta = jr.normal(ks[4], (m, dx))
-        return (A, b, C, J, eta)
-
-    @pytest.mark.parametrize("dx", [2, 4, 8])
-    def test_kernel_matches_xla(self, dx):
-        from bayesianfiltering_tpu.ops import bank_combine as bc
-
-        left = self._elements(jr.PRNGKey(1), 96, dx, singular_head=20)
-        right = self._elements(jr.PRNGKey(2), 96, dx)
-        ref = bc._combine_xla(left, right)
-        with pltpu.force_tpu_interpret_mode():
-            out = bc._combine_pallas(left, right)
+    def test_cpu_wrappers_run_the_reference(self):
+        args = _bank(20, 4, 1)
+        out = bu.bank_chol_update(*args)
+        ref = bu._update_xla(*args, 0.0)
         for r, o in zip(ref, out):
-            np.testing.assert_allclose(o, r, rtol=2e-5, atol=2e-5)
-
-    def test_indefinite_c_lane_guard_matches_xla(self):
-        """Round-5 regression (TPU damped-IEKS NaNs, BENCHLOG round 5):
-        a combined C can be rank-deficient AND slightly indefinite from
-        f32 rounding (eigenvalue ≈ −1e-9, BELOW the kernel's
-        trace-relative ε floor ≈ 5e-10). The XLA combine survives via
-        cholesky_guarded (whole factor zeroed for that lane, M⁻¹ → I);
-        the lattice kernel must mirror that guard lane-wise instead of
-        NaN-ing the scan."""
-        from bayesianfiltering_tpu.ops import bank_combine as bc
-
-        dx, m = 4, 96
-        left = self._elements(jr.PRNGKey(3), m, dx)
-        right = self._elements(jr.PRNGKey(4), m, dx)
-        # lane 0: C exactly rank-2 with one tiny NEGATIVE eigenvalue
-        q, _ = jnp.linalg.qr(jr.normal(jr.PRNGKey(5), (dx, dx)))
-        evals = jnp.array([1e-2, 1e-2, -1e-8, 0.0])  # −1e-8 ≪ −ε ≈ −5e-10
-        C_bad = (q * evals) @ q.T
-        C = left[2].at[0].set(C_bad)
-        left = (left[0], left[1], C, left[3], left[4])
-        ref = bc._combine_xla(left, right)
-        with pltpu.force_tpu_interpret_mode():
-            out = bc._combine_pallas(left, right)
-        for nm, r, o in zip("A b C J eta".split(), ref, out):
-            assert np.isfinite(np.asarray(o)).all(), nm
-            np.testing.assert_allclose(o, r, rtol=2e-5, atol=2e-5,
-                                       err_msg=nm)
-
-    def test_broadcast_batch_dims(self):
-        """Step-4 shape of the chunked scan: left (1, G, ...) broadcast
-        against right (C, G, ...)."""
-        from bayesianfiltering_tpu.ops import bank_combine as bc
-
-        G, C, dx = 6, 4, 3
-        left = tuple(x[None] for x in self._elements(jr.PRNGKey(3), G, dx))
-        right = tuple(
-            x.reshape((C, G) + x.shape[1:])
-            for x in self._elements(jr.PRNGKey(4), C * G, dx))
-        ref = bc._combine_xla(left, right)
-        with pltpu.force_tpu_interpret_mode():
-            out = bc.bank_filter_combine(left, right, use_pallas=True)
-        for r, o in zip(ref, out):
-            assert o.shape == (C, G) + o.shape[2:]
-            np.testing.assert_allclose(o, np.broadcast_to(r, o.shape),
-                                       rtol=2e-5, atol=2e-5)
-
-    def test_gate_refuses_vmap_and_cpu(self):
-        from bayesianfiltering_tpu.ops import bank_combine as bc
-
-        left = self._elements(jr.PRNGKey(5), 8, 3)
-        # CPU backend → gate off outright
-        assert not bc.should_use_pallas(3, *left)
-
-        # under vmap the gate must fail closed even if other checks pass
-        hits = []
-
-        def probe(x):
-            hits.append(bc.should_use_pallas(3, x))
-            return x
-
-        jax.vmap(probe)(left[0])
-        assert hits == [False]
-
-    def test_grad_flows_through_wrapper(self):
-        from bayesianfiltering_tpu.ops import bank_combine as bc
-
-        left = self._elements(jr.PRNGKey(6), 4, 3)
-        right = self._elements(jr.PRNGKey(7), 4, 3)
-
-        def loss(C1):
-            out = bc.bank_filter_combine(
-                (left[0], left[1], C1, left[3], left[4]), right,
-                use_pallas=False)
-            return sum(jnp.sum(o) for o in out)
-
-        g = jax.grad(loss)(left[2])
-        assert bool(jnp.isfinite(g).all())
+            np.testing.assert_array_equal(o, r)
 
 
-class TestBankSmoother:
-    """Fused RTS element-construction and smoothing-combine kernels
-    (ops/bank_smoother.py) vs their XLA references (interpret mode)."""
+@pytest.mark.gpu
+class TestCompiledKernel:
+    """Compiled through Triton: runs only where JAX sees a GPU."""
 
-    @pytest.mark.parametrize("dx", [2, 4, 8])
-    def test_elements_match_xla(self, dx):
-        from bayesianfiltering_tpu.ops import bank_smoother as bs
-
-        key = jr.PRNGKey(0)
-        M = 96
-        fP = _random_psd_bank(jr.fold_in(key, 1), M, dx)
-        pP = _random_psd_bank(jr.fold_in(key, 2), M, dx) + jnp.eye(dx)
-        fm = jr.normal(jr.fold_in(key, 3), (M, dx))
-        pm = jr.normal(jr.fold_in(key, 4), (M, dx))
-        F = jr.normal(jr.fold_in(key, 5), (M, dx, dx)) * 0.5
-        ref = bs._elements_xla(fm, fP, pm, pP, F)
-        with pltpu.force_tpu_interpret_mode():
-            out = bs._elements_pallas(fm, fP, pm, pP, F)
-        for r, o in zip(ref, out):
-            np.testing.assert_allclose(o, r, rtol=2e-4, atol=2e-4)
-
-    def test_combine_matches_xla(self):
-        from bayesianfiltering_tpu.ops import bank_smoother as bs
-
-        key, dx, M = jr.PRNGKey(1), 4, 64
-        mk = lambda k: (jr.normal(jr.fold_in(k, 0), (M, dx, dx)) * 0.5,
-                        jr.normal(jr.fold_in(k, 1), (M, dx)),
-                        _random_psd_bank(jr.fold_in(k, 2), M, dx))
-        e1, e2 = mk(jr.fold_in(key, 1)), mk(jr.fold_in(key, 2))
-        ref = bs._scombine_xla(e1, e2)
-        with pltpu.force_tpu_interpret_mode():
-            out = bs._scombine_pallas(e1, e2)
-        for r, o in zip(ref, out):
-            np.testing.assert_allclose(o, r, rtol=2e-5, atol=2e-5)
-
-    def test_combine_broadcast(self):
-        from bayesianfiltering_tpu.ops import bank_smoother as bs
-
-        key, dx, G, C = jr.PRNGKey(2), 3, 5, 4
-        mk = lambda k, m, lead: tuple(
-            x.reshape(lead + x.shape[1:]) for x in (
-                jr.normal(jr.fold_in(k, 0), (m, dx, dx)) * 0.5,
-                jr.normal(jr.fold_in(k, 1), (m, dx)),
-                _random_psd_bank(jr.fold_in(k, 2), m, dx)))
-        e1 = mk(jr.fold_in(key, 1), G, (1, G))
-        e2 = mk(jr.fold_in(key, 2), C * G, (C, G))
-        ref = bs._scombine_xla(e1, e2)
-        with pltpu.force_tpu_interpret_mode():
-            out = bs.bank_smoother_combine(e1, e2, use_pallas=True)
-        for r, o in zip(ref, out):
-            np.testing.assert_allclose(o, np.broadcast_to(r, o.shape),
-                                       rtol=2e-5, atol=2e-5)
-
-
-class TestWindowedParents:
-    """ops/resample_gather.py: windowed parent construction vs the XLA
-    scatter formulation (interpret mode on CPU)."""
-
-    @staticmethod
-    def _counts(key, n):
-        w = jr.dirichlet(key, jnp.ones(n) * 0.5)
-        cdf = jnp.cumsum(w)
-        cdf = cdf / cdf[-1]
-        return jax.lax.cummax(jnp.clip(jnp.ceil(n * cdf - 0.3), 0, n))
-
-    @pytest.mark.parametrize("n", [4096, 5000])
-    def test_matches_scatter(self, n):
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        counts = self._counts(jr.PRNGKey(0), n)
-        ref = rs._scatter_counts_to_parents(counts, n)
-        with pltpu.force_tpu_interpret_mode():
-            out = rg.windowed_parents(counts, n)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    def test_extreme_concentration_stays_on_kernel(self):
-        """All mass on the last particle: every parent is n−1, the window
-        centers on it (span ~1) and the kernel branch handles it."""
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        n = 4096
-        counts = jnp.concatenate(
-            [jnp.zeros(n - 1), jnp.full((1,), float(n))])
-        ref = rs._scatter_counts_to_parents(counts, n)
-        with pltpu.force_tpu_interpret_mode():
-            out = rg.windowed_parents(counts, n)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        assert int(ref[0]) == n - 1
-
-    def test_spread_skew_overflows_window_falls_back(self):
-        """Weight on every 4th particle: a tile of B outputs draws parents
-        spanning ~4B > W source indices, the span check trips, and the
-        cond takes the scatter branch — same answer."""
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        n = 8192
-        # particle 0 owns 3/4 of the outputs; the rest are spread thinly
-        # over all other particles, so tail-region parents advance ~4
-        # source indices per output slot — a B-output tile there spans
-        # ~4B > W parent indices.
-        i = jnp.arange(n, dtype=jnp.float32)
-        counts = jnp.ceil(0.75 * n + (i / (n - 1)) * 0.25 * n)
-        counts = jax.lax.cummax(jnp.clip(counts, 0, n))
-        # confirm the premise: some tile's parent span exceeds the window
-        p_lo = np.searchsorted(np.asarray(counts),
-                               np.arange(0, n + rg._B, rg._B), side="right")
-        s = (p_lo[:-1] // rg._ALIGN) * rg._ALIGN
-        assert (p_lo[1:] - s).max() > rg._W
-        ref = rs._scatter_counts_to_parents(counts, n)
-        with pltpu.force_tpu_interpret_mode():
-            out = rg.windowed_parents(counts, n)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    def test_unassigned_tail_slot_backfills_like_scatter(self):
-        """f32 rounding in ceil(n·cdf − u0) can leave the final cumulative
-        count at n−1, so the last output slot is unassigned. The scatter
-        path backfills it with parent n−1; the count formula naturally
-        returns n (out of range → a NaN row through jnp.take's fill mode —
-        the round-5 BPF step-7 NaN). Pin the clamp parity."""
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        n = 4096
-        w = jr.dirichlet(jr.PRNGKey(9), jnp.ones(n))
-        cdf = jnp.cumsum(w)
-        cdf = cdf / cdf[-1]
-        counts = jax.lax.cummax(jnp.clip(jnp.ceil(n * cdf - 0.5), 0, n))
-        # the rounding edge: the count total saturates at n−1, monotone
-        counts = jnp.minimum(counts, float(n - 1))
-        ref = rs._scatter_counts_to_parents(counts, n)
-        with pltpu.force_tpu_interpret_mode():
-            out = rg.windowed_parents(counts, n)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        assert int(out[-1]) == n - 1
-
-    def test_or_defer_parity_and_deferral_flag(self):
-        """windowed_parents_or_defer: (a) ok=True → parents equal the
-        scatter formulation exactly; (b) window overflow → ok=False and
-        IDENTITY parents (the BPF treats that step as deferred)."""
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        n = 4096
-        counts = self._counts(jr.PRNGKey(4), n)
-        ref = rs._scatter_counts_to_parents(counts, n)
-        with pltpu.force_tpu_interpret_mode():
-            out, ok = rg.windowed_parents_or_defer(counts, n)
-        assert bool(ok)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-        n2 = 8192
-        i = jnp.arange(n2, dtype=jnp.float32)
-        bad = jnp.ceil(0.75 * n2 + (i / (n2 - 1)) * 0.25 * n2)
-        bad = jax.lax.cummax(jnp.clip(bad, 0, n2))
-        with pltpu.force_tpu_interpret_mode():
-            out2, ok2 = rg.windowed_parents_or_defer(bad, n2)
-        assert not bool(ok2)
-        np.testing.assert_array_equal(np.asarray(out2), np.arange(n2))
-
-    def test_bpf_windowed_path_matches_scatter_path(self):
-        """The BPF's windowed fast path (deferral design) is bit-equal to
-        the scatter path when no deferral occurs — same keys, same
-        trajectory (interpret mode, gate forced on)."""
-        import bayesianfiltering_tpu.inference as gf
-        from bayesianfiltering_tpu.models import zoo
-        from bayesianfiltering_tpu.ops import resample_gather as rg
-
-        _, _, bpfp = zoo.lorenz96(4, 2)
-        dm, dp, _ = zoo.lorenz96(4, 2, integrator="rk4")
-        em = dm.sample(dp, jr.PRNGKey(3), 8)[1]
-        kw = dict(key=jr.PRNGKey(5), ess_threshold=2.0, store="summary")
-        ref = gf.bootstrap_particle_filter(bpfp, em, 2048, **kw)
-
-        orig = rg.windowed_parents_eligible
-        rg.windowed_parents_eligible = lambda ns, *a: True
-        try:
-            with pltpu.force_tpu_interpret_mode():
-                out = gf.bootstrap_particle_filter(bpfp, em, 2048, **kw)
-        finally:
-            rg.windowed_parents_eligible = orig
-        np.testing.assert_allclose(np.asarray(out["means"]),
-                                   np.asarray(ref["means"]),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(out["ess"]),
-                                   np.asarray(ref["ess"]), rtol=1e-5)
-
-    def test_resampler_dispatch_unchanged_on_cpu(self):
-        """On the CPU backend the eligibility gate keeps the scatter
-        path — systematic_resample output is bit-identical pre/post
-        dispatch wiring."""
-        from bayesianfiltering_tpu.utils import resampling as rs
-
-        w = jr.dirichlet(jr.PRNGKey(2), jnp.ones(512))
-        idx = rs.systematic_resample(jr.PRNGKey(3), w, 512)
-        assert idx.shape == (512,)
-        assert int(idx.min()) >= 0 and int(idx.max()) < 512
-        # parents must be sorted for systematic resampling
-        assert bool(jnp.all(jnp.diff(idx) >= 0))
+    def test_update_and_predict_match_xla(self, gpu):
+        args = _bank(1000, 4, 1)
+        for r, o in zip(bu._update_xla(*args, 0.0),
+                        jax.jit(lambda *a: bu._update_pallas(*a, 0.0))(*args)):
+            np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4)
+        pargs = _predict_bank(1000, 4, 2)
+        np.testing.assert_allclose(jax.jit(bu._predict_pallas)(*pargs),
+                                   bu._predict_xla(*pargs),
+                                   rtol=1e-4, atol=1e-4)

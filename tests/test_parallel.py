@@ -52,7 +52,7 @@ class TestBatchedFilter:
         assert out.filtered_means.shape == (4, 10, 2)
 
     def test_repeated_calls_hit_jit_cache(self):
-        """batched_filter must not re-trace per call (VERDICT.md weak #9):
+        """batched_filter must not re-trace per call:
         same configuration + new emission values → one trace."""
         model, params, _ = zoo.linear_gaussian(2, 2)
         traces = []
@@ -110,7 +110,7 @@ class TestShardedBPF:
         assert bool(jnp.all(out["ess"] > 0)), "ESS must stay positive"
 
     def test_weak_scaling_consistent_across_mesh_sizes(self):
-        """Weak scaling (VERDICT.md weak #9): constant per-device particle
+        """Weak scaling: constant per-device particle
         count as the mesh doubles 1→2→4→8; every mesh size must produce a
         consistent posterior (same model, within MC error of the Kalman
         truth), and the local shard shapes must stay fixed."""
@@ -280,7 +280,7 @@ class TestShardedGSF:
         M·N·L = 102400 components in flight on the 8-mesh with the
         gather-free local reduction — two steps, correctness-only (the
         timed gathered-vs-local A/B at this size lives in
-        experiments/sharded_agsf_scale.py; BENCHLOG round 5 records it).
+        experiments/sharded_agsf_scale.py).
         Pins mass preservation, finiteness, and the shard-local shapes."""
         from bayesianfiltering_tpu.parallel import make_mesh
         from bayesianfiltering_tpu.parallel.mixture import sharded_agsf

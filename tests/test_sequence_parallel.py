@@ -1,7 +1,7 @@
 """Sequence-parallel filtering: the associative-scan Kalman filter with the
 TIME axis sharded over the device mesh (SURVEY.md §5.7's long-sequence
 scaling story). `lax.associative_scan` is log-depth, so XLA turns the
-time-sharded input into a cross-device scan with ICI collectives."""
+time-sharded input into a cross-device scan with collectives."""
 import jax
 import jax.numpy as jnp
 import jax.random as jr

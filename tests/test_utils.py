@@ -205,8 +205,8 @@ class TestResampling:
         np.testing.assert_allclose(jnp.sum(new_w), 1.0, rtol=1e-5)
 
     def test_optimal_resampling_single_target(self):
-        """N=1 previously gathered from a zero-length threshold array
-        (ADVICE.md #3); must return one valid index with weight 1."""
+        """N=1 previously gathered from a zero-length threshold array;
+        must return one valid index with weight 1."""
         w = jnp.array([0.1, 0.2, 0.65, 0.05])
         idx, new_w = utils.optimal_resampling(w, 1, jr.PRNGKey(7))
         assert idx.shape == (1,)
@@ -291,29 +291,56 @@ class TestDistributions:
 
 
 class TestCholAndInv:
-    """utils/linalg.py::chol_and_inv_lower — combined factorization."""
+    """utils/linalg.py — the factorization table and both of its forms."""
 
-    @pytest.mark.parametrize("n,base", [(8, 8), (16, 8), (32, 8), (32, 16),
-                                        (24, 8), (5, 4)])
-    def test_matches_separate(self, n, base):
-        from bayesianfiltering_tpu.utils.linalg import (
-            chol_and_inv_lower, cholesky_blocked, tri_inv_lower)
+    @pytest.mark.parametrize("n", [1, 4, 5, 8, 9, 16, 24, 32])
+    def test_matches_native(self, n):
+        from bayesianfiltering_tpu.utils.linalg import chol_and_inv_lower
 
         a = jr.normal(jr.PRNGKey(31), (n, n))
         S = a @ a.T + 0.5 * jnp.eye(n)
-        L, Li = chol_and_inv_lower(S, base=base)
+        L, Li = chol_and_inv_lower(S)
         np.testing.assert_allclose(L, jnp.linalg.cholesky(S), rtol=2e-4,
                                    atol=2e-4)
         np.testing.assert_allclose(Li @ L, jnp.eye(n), rtol=1e-3, atol=1e-3)
 
-    def test_batched(self):
+    @pytest.mark.parametrize("n", [3, 12])
+    def test_batched(self, n):
         from bayesianfiltering_tpu.utils.linalg import chol_and_inv_lower
 
-        a = jr.normal(jr.PRNGKey(32), (7, 12, 12))
-        S = jnp.einsum("mik,mjk->mij", a, a) + jnp.eye(12)
-        L, Li = chol_and_inv_lower(S, base=8)
+        a = jr.normal(jr.PRNGKey(32), (7, n, n))
+        S = jnp.einsum("mik,mjk->mij", a, a) + jnp.eye(n)
+        L, Li = chol_and_inv_lower(S)
         np.testing.assert_allclose(L, jnp.linalg.cholesky(S), rtol=2e-4,
                                    atol=2e-4)
-        eye = jnp.broadcast_to(jnp.eye(12), (7, 12, 12))
+        eye = jnp.broadcast_to(jnp.eye(n), (7, n, n))
         np.testing.assert_allclose(jnp.einsum("mij,mjk->mik", Li, L), eye,
                                    rtol=1e-3, atol=1e-3)
+
+    @pytest.mark.parametrize("n,expect", [(1, "unrolled"), (8, "unrolled"),
+                                          (9, "native"), (512, "native")])
+    def test_table(self, n, expect):
+        from bayesianfiltering_tpu.utils.linalg import factor_impl
+
+        assert factor_impl(n) == expect
+
+    @pytest.mark.parametrize("n,expect", [(4, "eigh"), (9, "newton_schulz"),
+                                          (128, "newton_schulz"),
+                                          (129, "eigh")])
+    def test_sqrt_table(self, n, expect):
+        from bayesianfiltering_tpu.utils.linalg import sqrt_impl
+
+        assert sqrt_impl(n) == expect
+
+    @pytest.mark.parametrize("n", [3, 12])
+    def test_guarded_zeroes_failed_factors(self, n):
+        """Both forms: an indefinite matrix's factor is zeroed whole (the
+        unrolled lattice leaves a finite prefix; native NaNs it all)."""
+        from bayesianfiltering_tpu.utils.linalg import cholesky_guarded
+
+        good = jnp.eye(n) * 2.0
+        bad = jnp.eye(n).at[n - 1, n - 1].set(-1.0)
+        out = cholesky_guarded(jnp.stack([good, bad]))
+        np.testing.assert_allclose(out[0], jnp.sqrt(2.0) * jnp.eye(n),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(out[1], jnp.zeros((n, n)))
